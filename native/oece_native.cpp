@@ -2,7 +2,7 @@
 //
 // Role parity: the reference implements its circuit compiler and netlist
 // machinery in C++ (src/analyze.cpp, src/assemble.cpp, src/circuit.cpp's
-// ReadFile + O(G^2) netlist build).  These are the TPU-native equivalents:
+// ReadFile + O(G^2) netlist build).  These are the native equivalents:
 // an O(G) Bristol parser and an O(G) ASAP levelizer over flat int32 arrays,
 // exposed through a plain C ABI consumed via ctypes
 // (oece_tpu/circuits/native.py).  The Python implementations remain the

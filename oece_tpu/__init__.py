@@ -1,14 +1,13 @@
-"""oece_tpu — a TPU-native encrypted boolean-circuit evaluator.
+"""oece_tpu — an encrypted boolean-circuit evaluator in JAX.
 
-A from-scratch JAX/Pallas re-design of the capabilities of
-``openfheorg/openfhe-boolean-circuit-evaluator`` (reference mounted at
-/root/reference), including the full FHEW/TFHE cryptographic layer that the
+A from-scratch JAX re-design of the capabilities of
+``openfheorg/openfhe-boolean-circuit-evaluator``, including the full FHEW/TFHE cryptographic layer that the
 reference outsources to OpenFHE's ``binfhe`` module.
 
 Subpackages
 -----------
 fhe      : the cryptographic layer (LWE/RLWE/RGSW, GINX/AP bootstrapping,
-           negacyclic NTT, key/mod switching) as batched JAX/Pallas kernels
+           negacyclic NTT, key/mod switching) as batched JAX programs
            plus an exact NumPy golden model.
 circuits : Bristol-format parsers, analyzer/assembler (compiler), levelizer,
            and a circuit-generator DSL.

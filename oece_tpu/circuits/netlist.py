@@ -1,6 +1,6 @@
 """Netlist IR: integer-indexed struct-of-arrays gate lists.
 
-The TPU-first replacement for the reference's string-keyed dynamic structures
+The batched-engine replacement for the reference's string-keyed dynamic structures
 (``NetList = std::map<std::string, GateNameList>``, circuit.h:52, built by an
 O(G^2) scan at circuit.cpp:323-354): wires are dense integer ids, gates are
 flat int32 arrays, and fanout/levels are computed in O(G).

@@ -1,24 +1,32 @@
-"""TPU-native batched gate bootstrapping.
+"""Batched gate bootstrapping on the accelerator.
 
 This is the replacement for OpenFHE's ``EvalBinGate`` (reference call sites
 src/gate.cpp:133,171) — the operation that accounts for ~99% of the
 reference's encrypted runtime (SURVEY.md §3.5).  Instead of the reference's
 one-gate-per-OpenMP-task model (circuit.cpp:698-710), gates are evaluated in
 large batches: a whole circuit level (plus test-case batching) bootstraps as
-one ``lax.scan`` whose body is a single int8 MXU matmul.
+one ``lax.scan`` whose body is a single int8 matrix product.
 
-Design (GINX / CGGI blind rotation, ternary secret split into +/- parts):
+Design (GINX / CGGI blind rotation, ternary secret split into +/- parts,
+rotated-difference form — golden.blind_rotate_ginx_rot):
 
   * The accumulator RLWE ciphertext ACC lives as int32 [B, 2, N] in [0, Q).
-  * Each of the n scan steps gadget-decomposes ACC into signed int8 digits
-    [B, 2*d_g*N] and multiplies by the step's RGSW key, materialized as a
-    dense block-negacyclic int8 matrix [2*d_g*N, 2*2*L*N] (L = 4 key limbs).
-    The contraction is exact: |sum| <= 2*d_g*N * 128 * 128 = 2**27 < 2**31.
-  * Limb accumulators are recombined mod Q with int32-only arithmetic
-    (fhe/modmath.py), per-gate monomial rotations are applied with gathers,
-    and the CMUX add closes the step.
+  * Each of the n scan steps forms the two rotated differences
+    (X^{-a_i} - 1)·ACC and (X^{a_i} - 1)·ACC, gadget-decomposes both into
+    signed int8 digits [B, 2*R*N] (R = 2*d_g_used) and contracts them with
+    the step's RGSW key in ONE s8 x s8 -> s32 ``dot_general``.  The
+    contraction is exact: |sum| <= 2*R*N * 128 * 128 = 2**27 < 2**31.
+  * Key limbs are recombined mod Q with int32-only arithmetic
+    (fhe/modmath.py) and the CMUX add closes the step.
   * Sample-extract, Q->Q_ks mod switch, a key-switch int8 matmul, and the
     final Q_ks->q mod switch produce fresh gate ciphertexts.
+
+Key layout: see ``DeviceBootKeys`` (block-Toeplitz: the 2*nt-1 distinct
+T x T blocks of each step's dense negacyclic key matrix, chosen over a
+compact key plus a per-step gather by measured SHA-256 wall; PERF.md).
+Binary-base AP (B_r = 2) uses the
+same contraction against the shared v=1 rotation key followed by a
+public-bit select; generic-base AP keeps a per-gate gather path.
 
 Bit-exactness: every step is exact integer arithmetic, so the whole pipeline
 matches fhe/golden.py bit-for-bit given identical keys (tests/test_boot.py).
@@ -27,8 +35,6 @@ matches fhe/golden.py bit-for-bit given identical keys (tests/test_boot.py).
 from __future__ import annotations
 
 import dataclasses
-import functools
-import os
 from typing import Optional
 
 import jax
@@ -36,35 +42,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from . import golden, modmath
-from . import pallas_kernels as pk
-from .params import BinFHEParams, BinFHEMethod, BinGate, Q27
-
-# Largest per-kernel-call batch (VMEM bound); bigger batches are chunked.
-PALLAS_MAX_B = 512
-
-# Per-step kernel batch chunk (VMEM-bound).  The r2/r3 GINX "megakernel"
-# (all n steps in one pallas_call, permuted-lane accumulator) is DELETED
-# (VERDICT r3 #6): it never produced hardware evidence, and the prebuilt
-# rev/rev2 layouts made both its premise (per-step dense build) and its
-# lane-permute machinery obsolete.  The AP megakernel remains — it is the
-# binary-base AP TPU vehicle (blind_rotate_ap_megakernel).
-FUSED_MAX_B = 1024
-
-# Run Pallas kernels in interpreter mode (tests on the virtual CPU mesh can
-# then exercise the exact production kernel path without a TPU).
-PALLAS_INTERPRET = os.environ.get("OECE_PALLAS_INTERPRET") == "1"
-
-# rev2 rotation as one whole-rotation megakernel (steps = grid dim) vs a
-# lax.scan of per-step kernels.  DEFAULT ON (VERDICT r4 #2: the megakernel
-# is the fastest measured pipeline — 2,259 boots/s at B=2048 vs 2,136 for
-# the scan — and also cuts circuit-level walls; ROOFLINE §4).
-# OECE_ROT_MEGA=0 restores the per-step scan.
-ROT_MEGA = os.environ.get("OECE_ROT_MEGA", "1") == "1"
-
-# H-way VPU/MXU software pipelining inside the rot megakernel (chunk h+1's
-# rotate-diff/decompose overlaps chunk h's MXU dots — pk._rot_megakernel_pipe).
-# 0/1 = single-chunk kernel.
-ROT_PIPE = int(os.environ.get("OECE_ROT_PIPE", "0"))
+from .params import BinFHEParams, BinFHEMethod, BinGate
 
 # Fixed gate enumeration for per-gate test-vector / prep-weight tables.
 GATE_ORDER = [
@@ -82,6 +60,13 @@ PREP_WEIGHTS = np.array(
     [[1, 1], [1, 1], [1, 1], [1, 1], [2, -2], [2, -2]], dtype=np.int32
 )
 
+# Row alignment of int8 matrix operands (batch rows, key-switch columns):
+# the int8 GEMM routes want every dimension a multiple of 4.
+GEMM_ALIGN = 4
+
+# Tile edge of the block-Toeplitz key layout.
+TILE = 128
+
 
 # ---------------------------------------------------------------------------
 # Key packing (host side, NumPy): golden.BootstrapKey -> device arrays.
@@ -92,58 +77,40 @@ PREP_WEIGHTS = np.array(
 class DeviceBootKeys:
     """Device-resident bootstrap key material.
 
-    ginx_kext : int8 [n, parts=2, rows=2*d_g, out=2, L, 2N]
-                limb decomposition of each RGSW key polynomial followed by the
-                limbs of its negation mod Q (for the negacyclic wrap).
-                (jnp gather path; None when packed for the Pallas kernel)
-    ginx_pallas : int32 [n, 2*nt-1, 4, R*M, SPANW] per-step diagonal key
-                windows for the Pallas negacyclic kernel (TPU path)
-    ap_kext   : int8 [n, d_r, B_r, rows, out, L, 2N] (AP, jnp gather path)
-    ap_pallas : int32 [n*d_r, 2*nt-1, 4, R*Ma*SPANW] windows of the v=1
-                rotation keys (binary-base AP, B_r=2: each step is one
-                shared-key external product + a public-bit select)
-    ksk       : int8 [N*d_ks, n+1, 2]  centered base-256 limbs mod Q_ks
-    tv_table  : int32 [len(GATE_ORDER), N] test vectors mod Q
+    brk      : int8 refresh keys of the shared-key contraction.  GINX: one
+               entry per LWE coefficient, parts P = 2 (s = +1, s = -1).
+               Binary-base AP: one entry per (coefficient, digit) step, the
+               v = 1 key only, P = 1.  Block-Toeplitz layout
+               [steps, out*L*T, 2*nt-1, P, R, T] (T = TILE, nt = N/T,
+               L = 4 limbs): the 2*nt-1 distinct T x T blocks of the step's
+               dense [P*R*N, out*L*N] negacyclic matrix, stored transposed
+               (the int8 GEMM's preferred [out, contraction] order); output
+               tile k contracts the static block slice nt-1-k .. 2nt-2-k.
+               Tensor parallelism shards the R axis.
+    ap_kext  : int8 [n, d_r, B_r, R, out, L, 2N] generic-base AP keys
+               (per-gate gather path; B_r > 2 only)
+    ksk      : int8 [N*d_ks, n+1, 2]  centered base-256 limbs mod Q_ks
+    tv_table : int32 [len(GATE_ORDER), N] test vectors mod Q
     """
 
     params: BinFHEParams
     method: BinFHEMethod
-    ginx_kext: Optional[jnp.ndarray]
+    brk: Optional[jnp.ndarray]
     ap_kext: Optional[jnp.ndarray]
     ksk: jnp.ndarray
     tv_table: jnp.ndarray
-    ginx_pallas: Optional[jnp.ndarray] = None
-    ap_pallas: Optional[jnp.ndarray] = None
-    # Prebuilt TRUE-layout reversed-diagonal dense blocks, int8
-    # [n, (2*nt-1)*R*128, M*128] (fhe/devkeygen.py; the round-3 hot path —
-    # kills the per-step dense build and the lane permutation entirely).
-    ginx_rev: Optional[jnp.ndarray] = None
-    # Part-INTERLEAVED prebuilt diagonals int8
-    # [n, (2*nt-1)*2*R*128, 8*128] — row (d', part, r, u) at
-    # d'*2RT + part*RT + r*128 + u — for the fused rotated-difference step
-    # (pk.rot_step_true / pk.blind_rotate_rot_megakernel; ROOFLINE §4
-    # lever 2: rotation moves before decomposition, the epilogue kernel
-    # and its [B, 4, N] HBM round-trip disappear).  Golden twin:
-    # golden.blind_rotate_ginx_rot.
-    ginx_rev2: Optional[jnp.ndarray] = None
 
 
 def _dbk_flatten(k: DeviceBootKeys):
-    return (
-        (k.ginx_kext, k.ap_kext, k.ksk, k.tv_table, k.ginx_pallas,
-         k.ap_pallas, k.ginx_rev, k.ginx_rev2),
-        (k.params, k.method),
-    )
+    return ((k.brk, k.ap_kext, k.ksk, k.tv_table), (k.params, k.method))
 
 
 def _dbk_unflatten(aux, children):
     params, method = aux
-    (ginx_kext, ap_kext, ksk, tv_table, ginx_pallas, ap_pallas,
-     ginx_rev, ginx_rev2) = children
+    brk, ap_kext, ksk, tv_table = children
     return DeviceBootKeys(
-        params=params, method=method, ginx_kext=ginx_kext, ap_kext=ap_kext,
-        ksk=ksk, tv_table=tv_table, ginx_pallas=ginx_pallas,
-        ap_pallas=ap_pallas, ginx_rev=ginx_rev, ginx_rev2=ginx_rev2,
+        params=params, method=method, brk=brk, ap_kext=ap_kext, ksk=ksk,
+        tv_table=tv_table,
     )
 
 
@@ -163,80 +130,77 @@ def _poly_ext_limbs(polys: np.ndarray, Q: int) -> np.ndarray:
     return np.moveaxis(limbs, -1, -2)  # [..., L, 2N]
 
 
-def pack_bootstrap_key(
-    bk: golden.BootstrapKey, use_pallas: Optional[bool] = None
-) -> DeviceBootKeys:
-    """Pack keys for the device.  use_pallas defaults to True on TPU (the
-    barrel-shift MXU kernel) and False elsewhere (jnp gather path)."""
+def toeplitz_index(N: int, xp=np):
+    """[2*nt-1, T(u), T(t)] index into the 2N extension: block d' holds
+    ((nt-1-d')*T + t - u) mod 2N."""
+    assert N % TILE == 0, N
+    T, nt = TILE, N // TILE
+    dp = xp.arange(2 * nt - 1)[:, None, None]
+    u = xp.arange(T)[None, :, None]
+    t = xp.arange(T)[None, None, :]
+    return ((nt - 1 - dp) * T + t - u) % (2 * N)
+
+
+def toeplitz_blocks(kext, xp=np):
+    """Limb planes [..., P, R, O, L, 2N] -> [..., O*L*T, 2nt-1, P, R, T].
+
+    Entry (o, l, t; d', p, r, u) holds kext[p, r, o, l,
+    ((nt-1-d')*T + t - u) mod 2N]: block d' = nt-1-k+j is the (input tile
+    j, output tile k) block of the dense negacyclic matrix."""
+    *lead, P, R, O, L, two_n = kext.shape
+    g = kext[..., toeplitz_index(two_n // 2, xp)]  # [.., P, R, O, L, nd, u, t]
+    nl = len(lead)
+    perm = tuple(range(nl)) + tuple(
+        nl + a for a in (2, 3, 6, 4, 0, 1, 5)
+    )  # -> [..., O, L, t, nd, P, R, u]
+    g = xp.transpose(g, perm)
+    return g.reshape(*lead, O * L * TILE, *g.shape[nl + 3:])
+
+
+def pack_bootstrap_key(bk: golden.BootstrapKey) -> DeviceBootKeys:
+    """Pack golden keys for the device (the layout device keygen emits)."""
     p = bk.params
     Q = p.Q
-    if use_pallas is None:
-        use_pallas = (
-            jax.default_backend() not in ("cpu",) or PALLAS_INTERPRET
-        ) and p.N % pk.TILE == 0
-    ginx_kext = ap_kext = ginx_pallas = ap_pallas = None
+    brk = ap_kext = None
     if bk.method == BinFHEMethod.GINX:
-        # [n, parts, rows, out, N]
-        brk = np.stack([bk.brk_pos, bk.brk_neg], axis=1)
-        kext_np = _poly_ext_limbs(brk, Q)  # [n, parts, rows, out, L, 2N]
-        if use_pallas:
-            # kernel row order: r-major with m = (part, out, limb)
-            n = kext_np.shape[0]
-            R = kext_np.shape[2]
-            M = kext_np.shape[1] * kext_np.shape[3] * kext_np.shape[4]
-            perm = np.transpose(kext_np, (0, 2, 1, 3, 4, 5)).reshape(
-                n, R * M, 2 * p.N
-            )
-            wins = np.stack(
-                [pk.pack_keys_for_pallas(perm[i]) for i in range(n)]
-            )
-            ginx_pallas = jnp.asarray(wins)
-        else:
-            ginx_kext = jnp.asarray(kext_np)
+        polys = np.stack([bk.brk_pos, bk.brk_neg], axis=1)  # [n, P, R, out, N]
+        brk = jnp.asarray(toeplitz_blocks(_poly_ext_limbs(polys, Q)))
+    elif p.B_r == 2:
+        # binary-base AP: pack only the v=1 keys; v=0 is the identity and
+        # becomes a public-bit select on device.
+        v1 = bk.ak[:, :, 1]  # [n, d_r, R, out, N]
+        v1 = v1.reshape(-1, 1, *v1.shape[2:])  # [n*d_r, P=1, R, out, N]
+        brk = jnp.asarray(toeplitz_blocks(_poly_ext_limbs(v1, Q)))
     else:
-        if use_pallas and p.B_r == 2:
-            # binary-base AP: pack only the v=1 keys; v=0 is the identity
-            # and becomes a public-bit select on device.
-            n_, d_r = bk.ak.shape[0], bk.ak.shape[1]
-            rows, out = bk.ak.shape[3], bk.ak.shape[4]
-            Ma = out * modmath.N_LIMBS
-            nt = p.N // pk.TILE
-            wins = np.empty(
-                (n_ * d_r, 2 * nt - 1, 4, rows * Ma * pk.SPANW), np.int32
-            )
-            for i in range(n_):
-                for j in range(d_r):
-                    kext = _poly_ext_limbs(bk.ak[i, j, 1], Q)  # [rows,out,L,2N]
-                    perm = kext.reshape(rows * Ma, 2 * p.N)
-                    wins[i * d_r + j] = pk.pack_keys_for_pallas(perm).reshape(
-                        2 * nt - 1, 4, rows * Ma * pk.SPANW
-                    )
-            ap_pallas = jnp.asarray(wins)
-        else:
-            ap_kext = jnp.asarray(_poly_ext_limbs(bk.ak, Q))
+        ap_kext = jnp.asarray(_poly_ext_limbs(bk.ak, Q))
 
-    # Key-switch key: center mod Q_ks then 2 signed base-256 limbs.
+    return DeviceBootKeys(
+        params=p,
+        method=bk.method,
+        brk=brk,
+        ap_kext=ap_kext,
+        ksk=pack_ksk(p, bk.ksk),
+        tv_table=make_tv_table(p),
+    )
+
+
+def pack_ksk(p: BinFHEParams, ksk: np.ndarray) -> jnp.ndarray:
+    """Key-switch key [N, d_ks, n+1] mod Q_ks -> int8 [N*d_ks, n+1, 2]:
+    centered mod Q_ks, then 2 signed base-256 limbs."""
     Qks = p.Q_ks
-    ksk = np.asarray(bk.ksk, dtype=np.int64).reshape(p.N * p.d_ks, p.n + 1) % Qks
+    ksk = np.asarray(ksk, dtype=np.int64).reshape(p.N * p.d_ks, p.n + 1) % Qks
     ksk_c = np.where(ksk >= Qks // 2, ksk - Qks, ksk)
     l0 = ksk_c - ((ksk_c + 128) >> 8 << 8)  # centered low limb in [-128, 127]
     l1 = (ksk_c - l0) >> 8  # in [-64, 64]
     assert np.all(l0 >= -128) and np.all(l0 <= 127)
     assert np.all(l1 >= -128) and np.all(l1 <= 127)
     assert np.array_equal(l0 + (l1.astype(np.int64) << 8), ksk_c)
-    ksk_limbs = np.stack([l0, l1], axis=-1).astype(np.int8)
+    return jnp.asarray(np.stack([l0, l1], axis=-1).astype(np.int8))
 
-    tv = np.stack([golden.make_test_vector(p, g) for g in GATE_ORDER]).astype(np.int64)
-    return DeviceBootKeys(
-        params=p,
-        method=bk.method,
-        ginx_kext=ginx_kext,
-        ap_kext=ap_kext,
-        ksk=jnp.asarray(ksk_limbs),
-        tv_table=jnp.asarray(tv, dtype=jnp.int32),
-        ginx_pallas=ginx_pallas,
-        ap_pallas=ap_pallas,
-    )
+
+def make_tv_table(p: BinFHEParams) -> jnp.ndarray:
+    tv = np.stack([golden.make_test_vector(p, g) for g in GATE_ORDER])
+    return jnp.asarray(tv.astype(np.int64), dtype=jnp.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -301,24 +265,15 @@ def signed_digits_dev(x: jnp.ndarray, B: int, d: int) -> jnp.ndarray:
 def monomial_rotate(P: jnp.ndarray, c: jnp.ndarray, N: int, Q: int) -> jnp.ndarray:
     """P [B, ..., N] * X^{c[B]} in Z_Q[X]/(X^N+1); c in [0, 2N).
 
-    Gather-free (XLA gathers lower catastrophically on TPU): a CYCLIC
-    per-row barrel over length N (log2(N) masked static rolls) followed by
-    a sign fix-up.  With c = q*N + c', X^c * P cyclically rotated by c'
-    wraps coefficient k past X^N exactly when (k < c') XOR q, where it
-    picks up the negacyclic minus sign.  Half the lanes and one fewer
-    round than the naive barrel over the [P, -P] 2N extension.
+    Coefficient k of the product is +-P[(k - c) mod N], negated where
+    (k - c) mod 2N >= N (the product wrapped past X^N): one per-lane gather
+    (measured faster on the GPU than a log2(N)-round roll barrel; PERF.md).
     """
     cshape = (P.shape[0],) + (1,) * (P.ndim - 1)
-    cb = c.reshape(cshape)
-    cp = cb & (N - 1)  # c mod N
-    x = P
-    # cyclic right-rotate row b by cp[b]: X'[k] = X[(k - cp) mod N]
-    for b in range(int(np.log2(N))):
-        sh = 1 << b
-        rolled = jnp.roll(x, sh, axis=-1)
-        x = jnp.where((cp & sh) != 0, rolled, x)
     k = jnp.arange(N, dtype=c.dtype)
-    wrap = (k < cp) ^ (cb >= N)  # negate where wrapped past X^N
+    src = (k - c.reshape(cshape)) & (2 * N - 1)  # [B, 1.., N]
+    x = jnp.take_along_axis(P, jnp.broadcast_to(src & (N - 1), P.shape), axis=-1)
+    wrap = src >= N
     return jnp.where(wrap, jnp.where(x == 0, 0, Q - x), x)
 
 
@@ -328,114 +283,69 @@ def _acc_init(tv_sel: jnp.ndarray, b2N: jnp.ndarray, N: int, Q: int) -> jnp.ndar
     return jnp.stack([jnp.zeros_like(rot), rot], axis=1)
 
 
-def _digits_rbn(acc, p: BinFHEParams):
-    """acc [B, 2, N] -> gadget digits [R=2*d_g_used, B, N] int8,
-    r = (poly, dig)."""
-    digs = acc_gadget_digits_dev(acc, p)  # [B, 2, N, d_g_used]
-    return jnp.transpose(digs, (1, 3, 0, 2)).reshape(
-        2 * p.d_g_used, acc.shape[0], p.N
-    )
+def _digits_rows(x: jnp.ndarray, p: BinFHEParams) -> jnp.ndarray:
+    """RLWE [B, 2, N] -> gadget digit rows int8 [B, R, N], r = (poly, dig)
+    (golden.external_product's RGSW row order)."""
+    digs = acc_gadget_digits_dev(x, p)  # [B, 2, N, d]
+    B = x.shape[0]
+    return jnp.transpose(digs, (0, 1, 3, 2)).reshape(B, 2 * p.d_g_used, p.N)
 
 
-def _external_cmux_pallas(acc, a_col, kwin_i, p: BinFHEParams):
-    """Pallas-kernel version of one GINX step (TPU hot path).
+def _key_product(digs, key_i, p: BinFHEParams, tp_axis=None):
+    """Shared-key external product of a batch of digit rows.
 
-    kwin_i : int32 [2*nt-1, 4, R*M, SPANW] packed key windows for this step.
-
-    The limb combine runs inside the matmul kernel (the raw [B, M, N] limb
-    accumulators never reach HBM — 4x less output traffic); the per-gate
-    monomial rotations use the half-barrel jnp path (measured faster than
-    a VMEM-resident Pallas barrel, which is VPU-bound either way).
+    digs  : int8 [B, P, R, N] (R local to the tp shard under tp_axis)
+    key_i : one step of DeviceBootKeys.brk, [O*L*T, 2nt-1, P, R, T]
+    -> int32 [B, 2, N] mod Q:  sum_{p,r,i} digs[b,p,r,i] * key[p,r,o](X)
+       negacyclically, i.e. coefficient k gathers key[(k - i) mod 2N]
+       over the [v, -v] extension.  Output tile k is one s8 x s8 -> s32
+       dot of all nt input tiles against blocks nt-1-k .. 2nt-2-k.
     """
-    Q, N = p.Q, p.N
-    B = acc.shape[0]
-    digs = _digits_rbn(acc, p)  # [R, B, N]
-    dt = pk.pack_digits_for_pallas(digs)  # [nt, B, R*128]
-    P4 = pk.negacyclic_matmul_combine(
-        dt, kwin_i, 2 * p.d_g_used, Q, max_b=PALLAS_MAX_B,
-        interpret=PALLAS_INTERPRET,
-    )
-    P = P4.reshape(B, 2, 2, N)  # [B, part, out, N] mod Q
-    c_pos = (2 * N - a_col) & (2 * N - 1)
-    rot_pos = monomial_rotate(P[:, 0], c_pos, N, Q)
-    rot_neg = monomial_rotate(P[:, 1], a_col, N, Q)
-    y = acc + rot_pos + rot_neg + (2 * Q - P[:, 0] - P[:, 1])
-    return modmath.red31(y, Q)
-
-
-def _external_cmux_ginx(acc, a_col, kext_i, idx2n, p: BinFHEParams, tp_axis=None):
-    """One GINX step: parallel CMUX pair against RGSW(s+_i), RGSW(s-_i).
-
-    acc    : int32 [B, 2, N] in [0, Q)
-    a_col  : int32 [B] = a~_i per gate, in [0, 2N)
-    kext_i : int8 [parts=2, rows, out=2, L, 2N]; under tensor parallelism
-             (tp_axis set) this is the local shard of the ``rows`` axis and
-             the partial products are psum-reduced over ``tp_axis``.
-    idx2n  : int32 [N, N] constant gather index (k - i) mod 2N
-    """
-    Q, N, d_g = p.Q, p.N, p.d_g_used
-    B = acc.shape[0]
-    digs = acc_gadget_digits_dev(acc, p)  # [B, 2, N, d_g_used]
-    digs = jnp.transpose(digs, (0, 1, 3, 2)).reshape(B, 2 * d_g, N)
-    if tp_axis is not None:
-        rows_local = kext_i.shape[1]
-        r0 = jax.lax.axis_index(tp_axis) * rows_local
-        digs = jax.lax.dynamic_slice_in_dim(digs, r0, rows_local, axis=1)
-    dense = kext_i[..., idx2n]  # [parts, rows, out, L, N, N] int8
-    prod = jnp.einsum(
-        "bri,prolik->bpokl",
-        digs,
-        dense,
-        preferred_element_type=jnp.int32,
-    )  # [B, parts, out, N, L]
+    B, P, R, N = digs.shape
+    OLT, nd, _, _, T = key_i.shape
+    nt = (nd + 1) // 2
+    D = jnp.transpose(digs.reshape(B, P, R, nt, T), (0, 3, 1, 2, 4))
+    D = D.reshape(B, nt * P * R * T)
+    tiles = [
+        jax.lax.dot_general(
+            D, key_i[:, nt - 1 - k: 2 * nt - 1 - k].reshape(OLT, -1),
+            (((1,), (1,)), ((), ())), preferred_element_type=jnp.int32,
+        ).reshape(B, OLT // T, T)
+        for k in range(nt)
+    ]
+    prod = jnp.stack(tiles, axis=2).reshape(B, 2, OLT // T // 2, N)
     if tp_axis is not None:
         prod = jax.lax.psum(prod, tp_axis)
-    P = modmath.combine_limbs_mod_q(prod, Q)  # [B, parts, 2, N]
-    c_pos = (2 * N - a_col) & (2 * N - 1)
-    rot_pos = monomial_rotate(P[:, 0], c_pos, N, Q)
-    rot_neg = monomial_rotate(P[:, 1], a_col, N, Q)
-    y = acc + rot_pos + rot_neg + (2 * Q - P[:, 0] - P[:, 1])
-    return modmath.red31(y, Q)
+    return modmath.combine_limbs_mod_q(jnp.moveaxis(prod, 2, -1), p.Q)
 
 
-def _external_cmux_prebuilt(acc, a_col, rev_i, p: BinFHEParams, interpret=None):
-    """One GINX step against a PREBUILT true-layout dense block (the round-3
-    hot path): decompose (jnp) -> one window-span MXU dot per output tile
-    with the limb combine fused -> in-VMEM rotation/CMUX epilogue.
-    Bit-exact equal to _external_cmux_ginx given equivalent key material."""
-    if interpret is None:
-        interpret = PALLAS_INTERPRET
-    Q, N = p.Q, p.N
-    B = acc.shape[0]
-    P4 = pk.window_matmul_dec_true(
-        acc, rev_i, 2 * p.d_g_used, Q, p.B_g, p.d_g_used, p.g_shift,
-        block_b=FUSED_MAX_B, interpret=interpret,
-    )  # [B, 4, N] mod Q, (part, out) planes
-    c_pos = (2 * N - a_col) & (2 * N - 1)
-    amt = jnp.stack([c_pos, a_col], axis=1)  # [B, 2]
-    # rotation amounts are multiples of 2N/q (the q->2N mod switch):
-    # those low barrel rounds are statically dead.
-    zlb = max(0, int(np.log2(2 * N // p.q)))
-    return pk.cmux_epilogue_true(
-        P4.reshape(B, 2, 2, N), acc, amt, Q, block_b=FUSED_MAX_B,
-        interpret=interpret, zero_low_bits=zlb,
-    )
-
-
-def _external_cmux_rot(acc, a_col, rev2_i, p: BinFHEParams, interpret=None):
-    """One GINX step, CGGI rotated-difference form, as ONE fused kernel
-    (pk.rot_step_true).  Bit-exact equal to golden.blind_rotate_ginx_rot's
-    step given equivalent key material (tests/test_rot_form.py)."""
-    if interpret is None:
-        interpret = PALLAS_INTERPRET
+def _rot_diff_digits(acc, a_col, p: BinFHEParams, tp_axis=None, R_local=None):
+    """Digits of both rotated differences: int8 [B, P=2, R, N].
+    Part 0: (X^{-a} - 1)·acc (key s = +1); part 1: (X^{a} - 1)·acc."""
     Q, N = p.Q, p.N
     c_pos = (2 * N - a_col) & (2 * N - 1)
-    amt = jnp.stack([c_pos, a_col], axis=1)  # [B, 2]
-    zlb = max(0, int(np.log2(2 * N // p.q)))
-    return pk.rot_step_true(
-        acc, rev2_i, amt, Q, p.B_g, p.d_g_used, p.g_shift,
-        block_b=FUSED_MAX_B, interpret=interpret, zero_low_bits=zlb,
-    )
+    parts = []
+    for c in (c_pos, a_col):
+        d = monomial_rotate(acc, c, N, Q) - acc
+        d = jnp.where(d < 0, d + Q, d)  # (X^c - 1)*acc mod Q
+        parts.append(_digits_rows(d, p))
+    digs = jnp.stack(parts, axis=1)  # [B, 2, R, N]
+    if tp_axis is not None:
+        r0 = jax.lax.axis_index(tp_axis) * R_local
+        digs = jax.lax.dynamic_slice_in_dim(digs, r0, R_local, axis=2)
+    return digs
+
+
+def ginx_step(acc, a_col, key_i, p: BinFHEParams, tp_axis=None):
+    """One GINX CMUX step in the rotated-difference form:
+
+        acc += K+_i ⊡ ((X^{-a_i} - 1)·acc)  +  K-_i ⊡ ((X^{a_i} - 1)·acc)
+
+    Bit-exact vs golden.blind_rotate_ginx_rot's step (a_i = 0 lanes add
+    zero, matching golden's skip)."""
+    digs = _rot_diff_digits(acc, a_col, p, tp_axis, key_i.shape[3])
+    prod = _key_product(digs, key_i, p, tp_axis)
+    return modmath.red31(acc + prod, p.Q)
 
 
 def blind_rotate_ginx_dev(
@@ -443,104 +353,48 @@ def blind_rotate_ginx_dev(
 ) -> jnp.ndarray:
     """Scan the n CMUX steps.  a2N: int32 [B, n] in [0, 2N)."""
     p = keys.params
-    N = p.N
-    if keys.ginx_rev2 is not None:
-        assert tp_axis is None, "tensor parallelism uses the jnp key layout"
-        if ROT_MEGA:
-            # all n steps as ONE pallas_call (step = grid dim, accumulator
-            # VMEM-resident): removes the per-step launch overhead that
-            # dominates small-batch circuit levels
-            zlb = max(0, int(np.log2(2 * N // p.q)))
-            pipe = ROT_PIPE
-            if pipe > 1 and min(FUSED_MAX_B, acc.shape[0]) % pipe:
-                pipe = 0  # batch block not divisible; fall back
-            return pk.blind_rotate_rot_megakernel(
-                acc, keys.ginx_rev2, a2N, p.Q, p.B_g, p.d_g_used,
-                p.g_shift, block_b=FUSED_MAX_B,
-                interpret=PALLAS_INTERPRET, zero_low_bits=zlb,
-                pipeline=pipe,
-            )
-
-        def body_rot(carry, xs):
-            a_col, rev2_i = xs
-            return _external_cmux_rot(carry, a_col, rev2_i, p), None
-
-        acc, _ = jax.lax.scan(body_rot, acc, (a2N.T, keys.ginx_rev2))
-        return acc
-    if keys.ginx_rev is not None:
-        assert tp_axis is None, "tensor parallelism uses the jnp key layout"
-
-        def body_prebuilt(carry, xs):
-            a_col, rev_i = xs
-            return _external_cmux_prebuilt(carry, a_col, rev_i, p), None
-
-        acc, _ = jax.lax.scan(body_prebuilt, acc, (a2N.T, keys.ginx_rev))
-        return acc
-    if keys.ginx_pallas is not None:
-        assert tp_axis is None, "tensor parallelism uses the jnp key layout"
-
-        def body_pallas(carry, xs):
-            a_col, kwin_i = xs
-            return _external_cmux_pallas(carry, a_col, kwin_i, p), None
-
-        acc, _ = jax.lax.scan(body_pallas, acc, (a2N.T, keys.ginx_pallas))
-        return acc
-
-    i = jnp.arange(N, dtype=jnp.int32)
-    idx2n = (i[None, :] - i[:, None]) & (2 * N - 1)  # [N(i), N(k)] -> (k-i)
 
     def body(carry, xs):
-        a_col, kext_i = xs
-        return _external_cmux_ginx(carry, a_col, kext_i, idx2n, p, tp_axis), None
+        a_col, key_i = xs
+        return ginx_step(carry, a_col, key_i, p, tp_axis), None
 
-    acc, _ = jax.lax.scan(body, acc, (a2N.T, keys.ginx_kext))
+    acc, _ = jax.lax.scan(body, acc, (a2N.T, keys.brk))
     return acc
 
 
-def _blind_rotate_ap_fused(
-    acc: jnp.ndarray, a2N: jnp.ndarray, keys: DeviceBootKeys,
-    interpret: Optional[bool] = None,
-) -> jnp.ndarray:
-    """Binary-base AP rotation (B_r=2) as one Pallas megakernel: each of the
-    n*d_r steps is a shared-key external product + public-bit select —
-    MXU-shaped, unlike the per-gate-gather jnp path below."""
-    if interpret is None:
-        interpret = PALLAS_INTERPRET
-    p = keys.params
-    N, two_n = p.N, 2 * p.N
-    d_r = p.d_r
-    neg_a = (two_n - a2N) & (two_n - 1)  # [B, n]; rotate by -a_i*s_i total
-    j = jnp.arange(d_r, dtype=jnp.int32)
-    bits = (neg_a[:, :, None] >> j) & 1  # [B, n, d_r]
-    bits = jnp.transpose(bits, (1, 2, 0)).reshape(p.n * d_r, acc.shape[0], 1)
-    accp = pk.permute_lanes(acc)
-    accp = pk.blind_rotate_ap_megakernel(
-        accp, keys.ap_pallas, bits,
-        R=2 * p.d_g_used, Q=p.Q, B_g=p.B_g, d_used=p.d_g_used,
-        g_shift=p.g_shift, block_b=FUSED_MAX_B, interpret=interpret,
-    )
-    return pk.unpermute_lanes(accp)
+def ap_binary_step(acc, bit, key_i, p: BinFHEParams):
+    """One binary-base AP step: acc <- bit ? acc ⊡ RGSW(X^{2^j s_i}) : acc.
+    The digit bit of the public rotation amount selects per gate between
+    the shared-key external product and the unchanged accumulator."""
+    digs = _digits_rows(acc, p)[:, None]  # [B, P=1, R, N]
+    new = _key_product(digs, key_i, p)
+    return jnp.where((bit != 0)[:, None, None], new, acc)
 
 
 def blind_rotate_ap_dev(
     acc: jnp.ndarray, a2N: jnp.ndarray, keys: DeviceBootKeys
 ) -> jnp.ndarray:
-    """AP/DM blind rotation: per (i, digit j), per-gate key row gathered by
-    digit value and applied as a batched external product.
-
-    Batched-GEMV shaped (per-gate matrices), so it is the parity/compat path
-    for generic bases; binary-base AP keys route to the Pallas megakernel
-    (_blind_rotate_ap_fused).
-    """
-    if keys.ap_pallas is not None:
-        return _blind_rotate_ap_fused(acc, a2N, keys)
+    """AP/DM blind rotation.  Binary base: n*d_r shared-key steps (the GINX
+    contraction).  Generic base: per (i, digit j), per-gate key row gathered
+    by digit value and applied as a batched external product."""
     p = keys.params
     Q, N, d_g, B_r, d_r = p.Q, p.N, p.d_g_used, p.B_r, p.d_r
+    neg_a = (2 * N - a2N) & (2 * N - 1)  # rotate by -a_i * s_i in total
+    if keys.brk is not None:
+        j = jnp.arange(d_r, dtype=jnp.int32)
+        bits = (neg_a[:, :, None] >> j) & 1  # [B, n, d_r]
+        bits = bits.reshape(acc.shape[0], p.n * d_r).T
+
+        def body_bin(carry, xs):
+            bit, key_i = xs
+            return ap_binary_step(carry, bit, key_i, p), None
+
+        acc, _ = jax.lax.scan(body_bin, acc, (bits, keys.brk))
+        return acc
+
     B = a2N.shape[0]
     i = jnp.arange(N, dtype=jnp.int32)
     idx2n = (i[None, :] - i[:, None]) & (2 * N - 1)
-
-    neg_a = (2 * N - a2N) & (2 * N - 1)  # rotate by -a_i * s_i total
 
     def body(carry, xs):
         na_col, ak_i = xs  # na_col [B]; ak_i [d_r, B_r, rows, out, L, 2N]
@@ -572,11 +426,22 @@ def sample_extract(acc: jnp.ndarray, Q: int) -> jnp.ndarray:
     return jnp.concatenate([a_ext, acc[:, 1, :1]], axis=1)
 
 
+def _pad_to(x: jnp.ndarray, axis: int, mult: int) -> jnp.ndarray:
+    pad = (-x.shape[axis]) % mult
+    if not pad:
+        return x
+    widths = [(0, 0)] * x.ndim
+    widths[axis] = (0, pad)
+    return jnp.pad(x, widths)
+
+
 def key_switch_dev(ct_N: jnp.ndarray, keys: DeviceBootKeys, tp_axis=None) -> jnp.ndarray:
     """LWE [B, N+1] mod Q_ks -> [B, n+1] mod Q_ks via one int8 matmul.
 
-    Under tensor parallelism keys.ksk is a shard of the contraction axis
-    (N*d_ks) and the partial sums are psum-reduced over tp_axis."""
+    The key's (n+1)*2 output columns are zero-padded to a multiple of
+    GEMM_ALIGN for the int8 GEMM and sliced back.  Under tensor parallelism
+    keys.ksk is a shard of the contraction axis (N*d_ks) and the partial
+    sums are psum-reduced over tp_axis."""
     p = keys.params
     Qks, N, n = p.Q_ks, p.N, p.n
     B = ct_N.shape[0]
@@ -586,9 +451,11 @@ def key_switch_dev(ct_N: jnp.ndarray, keys: DeviceBootKeys, tp_axis=None) -> jnp
         k_local = keys.ksk.shape[0]
         k0 = jax.lax.axis_index(tp_axis) * k_local
         digs = jax.lax.dynamic_slice_in_dim(digs, k0, k_local, axis=1)
-    prod = jnp.einsum(
-        "bk,kml->bml", digs, keys.ksk, preferred_element_type=jnp.int32
-    )  # [B, n+1, 2]
+    kmat = keys.ksk.reshape(keys.ksk.shape[0], 2 * (n + 1))
+    prod = jax.lax.dot_general(
+        digs, _pad_to(kmat, 1, GEMM_ALIGN), (((1,), (0,)), ((), ())),
+        preferred_element_type=jnp.int32,
+    )[:, : 2 * (n + 1)].reshape(B, n + 1, 2)
     if tp_axis is not None:
         prod = jax.lax.psum(prod, tp_axis)
     val = prod[..., 0] + (prod[..., 1] << 8)
@@ -611,9 +478,14 @@ def bootstrap_batch(
 
     ``prep`` is the gate linear combination (golden.gate_prepare);
     ``gate_ids`` indexes GATE_ORDER and selects each gate's test vector.
+    The batch is zero-padded to a multiple of GEMM_ALIGN rows (padded rows
+    are bootstrapped like any other and dropped).
     """
     p = keys.params
     Q, N, q, Qks = p.Q, p.N, p.q, p.Q_ks
+    B = prep.shape[0]
+    prep = _pad_to(prep, 0, GEMM_ALIGN)
+    gate_ids = _pad_to(gate_ids, 0, GEMM_ALIGN)
     log_q = int(np.log2(q))
     log_qks = int(np.log2(Qks))
     # q -> 2N (exact: q <= 2N, power-of-two ratio)
@@ -632,7 +504,7 @@ def bootstrap_batch(
     )
     ct_ks = modmath.mod_switch_from_q27(ct_N, log_qks, Q)
     ct_n = key_switch_dev(ct_ks, keys, tp_axis)
-    return _mod_switch_pow2(ct_n, log_qks, log_q)
+    return _mod_switch_pow2(ct_n, log_qks, log_q)[:B]
 
 
 def prepare_gates(

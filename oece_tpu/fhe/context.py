@@ -7,7 +7,7 @@ The reference programs use exactly this interface (SURVEY.md §2.8):
 (gate.cpp:133,171), ``EvalNOT`` (gate.cpp:112).
 
 Single-ciphertext calls are conveniences over the batched core; use the
-``*_batch`` methods (or the runtime evaluator) to actually fill a TPU.
+``*_batch`` methods (or the runtime evaluator) to actually fill a GPU.
 """
 
 from __future__ import annotations

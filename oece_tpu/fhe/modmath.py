@@ -1,11 +1,11 @@
-"""Int32-safe modular arithmetic for TPU (no 64-bit integers, no mulhi).
+"""Int32-safe modular arithmetic (no 64-bit integers, no mulhi).
 
 The ring modulus is the FHEW prime Q = 2**27 - 2**11 + 1, which gives the
 cheap reduction identity  2**27 ≡ 2**11 - 1 (mod Q).  Everything here is
 written so that no intermediate exceeds 2**31 and is used identically by the
 jnp device path and the NumPy golden path (bit-exact by construction).
 
-Limb convention for MXU matmuls: ring coefficients v in [0, Q) are split into
+Limb convention for int8 matmuls: ring coefficients v in [0, Q) are split into
 L=4 signed base-256 limbs, each in [-128, 127] (top limb in [0, 7]), so they
 are int8-safe:  v = sum_l limb_l * 2**(8l).
 """

@@ -2,8 +2,8 @@
 
 The reference's polynomial arithmetic lives inside OpenFHE (SURVEY.md §2.8,
 "negacyclic ring arithmetic ... the inner hot kernel").  Our production
-bootstrap (fhe/boot.py) deliberately avoids the NTT — on TPU the negacyclic
-product is a dense int8 MXU matmul — but the NTT is still provided:
+bootstrap (fhe/boot.py) deliberately avoids the NTT — the negacyclic
+product is a dense int8 matmul — but the NTT is still provided:
 
   * as the O(N log N) reference transform (key generation, tests, and the
     BASELINE.md "speed-of-light" kernel benchmark);

@@ -1,14 +1,14 @@
 """Device (jnp) negacyclic NTT over Z_Q[X]/(X^N+1) — the speed-of-light
 comparison kernel (BASELINE.md item 4 / SURVEY §7.2).
 
-The production bootstrap deliberately avoids the NTT: on TPU the negacyclic
-product rides the 294-TOPS int8 MXU as a dense matmul (ROOFLINE §3), while
-an NTT is (N/2)·log2 N sequential butterfly stages of int32 modular
-multiplies on the VPU.  This module exists to MEASURE that claim instead of
-arguing it (tools/bench_ntt.py): a batched, jit-compatible, int32-exact
+The production bootstrap deliberately avoids the NTT: the negacyclic
+product runs as a dense int8 matmul on the tensor cores, while an NTT is
+log2 N sequential butterfly stages of int32 modular multiplies.  This
+module exists to MEASURE that trade instead of arguing it
+(tools/bench_ntt.py): a batched, jit-compatible, int32-exact
 forward/inverse transform, bit-identical to the host reference fhe/ntt.py.
 
-int32 discipline (no 64-bit mulhi on the VPU): a modular multiply by a
+int32 discipline (no 64-bit mulhi): a modular multiply by a
 CONSTANT twiddle w splits both operands at 2**14 —
 
     x*w = (x1*w1)*2**28 + (x1*w0 + x0*w1)*2**14 + x0*w0

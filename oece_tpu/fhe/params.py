@@ -1,4 +1,4 @@
-"""FHEW/TFHE parameter sets for the TPU-native boolean-circuit evaluator.
+"""FHEW/TFHE parameter sets for the boolean-circuit evaluator.
 
 Role parity: the reference obtains these from OpenFHE's
 ``BinFHEContext::GenerateBinFHEContext(set, method)``
@@ -8,7 +8,7 @@ Role parity: the reference obtains these from OpenFHE's
 themselves live inside OpenFHE.  Here they are first-class, self-contained
 records chosen from the FHEW/TFHE literature (Ducas-Micciancio FHEW;
 Micciancio-Polyakov "Bootstrapping in FHEW-like Cryptosystems") and sized so
-every hot operation maps onto TPU int8 MXU matmuls with exact int32
+every hot operation maps onto int8 matmuls with exact int32
 accumulation:
 
 * ``B_g``  <= 256 so signed gadget digits fit int8,
@@ -99,7 +99,7 @@ class BinFHEParams:
     # ``d_g_eff`` digits of the centered-and-rounded accumulator; the dropped
     # low bits become a small uniform noise term (bounded by 2**(g_shift-1)
     # per coefficient per external product — see NOISE.md).  0 = exact.
-    # Halves the blind-rotation MXU work at STD128 (R = 2*d_g_used rows).
+    # Halves the blind-rotation matmul work at STD128 (R = 2*d_g_used rows).
     d_g_eff: int = 0
 
     # ---- derived quantities -------------------------------------------------
@@ -208,10 +208,10 @@ STD128 = BinFHEParams(
     Q_ks=1 << 15,
     B_g=1 << 7,  # d_g = 4
     B_ks=1 << 2,  # d_ks = 8: small base keeps matmul-form key-switch noise low
-    # AP rotation base 2 (d_r = 11): the TPU-native choice — every AP step
-    # becomes ONE shared-key MXU external product + a public-bit select
-    # (boot._blind_rotate_ap_fused), and the AP key stays ~2.7 GB instead of
-    # the O(n*d_r*B_r) blowup of larger bases.  MICRO keeps B_r=32 to
+    # AP rotation base 2 (d_r = 11): every AP step becomes ONE shared-key
+    # external product + a public-bit select (boot.ap_binary_step), and the
+    # AP key holds only the v=1 keys instead of the O(n*d_r*B_r) blowup of
+    # larger bases.  MICRO keeps B_r=32 to
     # exercise the generic-base golden/jnp path.
     B_r=1 << 1,
     sigma=3.19,

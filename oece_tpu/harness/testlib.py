@@ -6,9 +6,9 @@ outputs with a golden model, runs the circuit in PLAINTEXT mode and compares,
 then (optionally) in ENCRYPTED mode with per-level verify and compares —
 the exact two-tier flow of e.g. src/test_sha256.cpp:284-341.
 
-TPU twist: the reference loops test cases serially; here all ``num_loops``
-cases evaluate as ONE batch (the batch dimension feeds the bootstrap MXU
-kernels), so more test loops make the hardware *more* efficient.
+Batched twist: the reference loops test cases serially; here all
+``num_loops`` cases evaluate as ONE batch (the batch dimension feeds the
+bootstrap matmuls), so more test loops make the hardware *more* efficient.
 
 Bit-order conventions (established empirically against the known-answer
 vectors; see tests/test_harness.py):
@@ -35,18 +35,12 @@ from ..runtime.evaluator import Circuit
 from . import models
 
 def _default_circuits_dir() -> str:
-    """Priority: $OECE_CIRCUITS, the generated in-repo corpus
-    (tools/gen_corpus.py), then the reference's data tree if present."""
-    env = os.environ.get("OECE_CIRCUITS")
-    if env:
-        return env
-    here = os.path.join(
+    """Priority: $OECE_CIRCUITS, then the in-repo corpus (examples/,
+    regenerable with tools/gen_corpus.py)."""
+    return os.environ.get("OECE_CIRCUITS") or os.path.join(
         os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
         "examples",
     )
-    if os.path.isdir(here):
-        return here
-    return "/root/reference/examples"
 
 
 DEFAULT_CIRCUITS_DIR = _default_circuits_dir()

@@ -5,7 +5,7 @@ Mirrors ``parse_inputs`` (src/utils.cpp:122-220): short flags
   -c  case count   -n  test loops   -v  verbose
   -s  param set (TOY | STD128_OPT | STD128 | MICRO)   (utils.cpp:166-177)
   -m  method (AP | GINX)                              (utils.cpp:180-185)
-plus long options for the TPU-native extensions.  The reference forces
+plus long options for the extensions.  The reference forces
 ``assemble -> analyze`` (utils.cpp:219); so do we.
 """
 

@@ -84,8 +84,8 @@ def test_micro_a_gate_bootstrap_golden(gate):
 
 
 def test_micro_a_device_jnp_matches_golden():
-    """Full batched device bootstrap (jnp gather path) == golden, bit-exact,
-    with the approximate gadget."""
+    """Full batched device bootstrap == golden (rotated-difference form),
+    bit-exact, with the approximate gadget."""
     import jax.numpy as jnp
 
     from oece_tpu.fhe import boot, lwe
@@ -94,7 +94,7 @@ def test_micro_a_device_jnp_matches_golden():
     rng = np.random.default_rng(4)
     sk = golden.lwe_keygen(p, rng)
     bk = golden.bootstrap_keygen(p, sk, rng, BinFHEMethod.GINX)
-    dkeys = boot.pack_bootstrap_key(bk, use_pallas=False)
+    dkeys = boot.pack_bootstrap_key(bk)
     B = 16
     bits1 = rng.integers(0, 2, B)
     bits2 = rng.integers(0, 2, B)
@@ -108,5 +108,5 @@ def test_micro_a_device_jnp_matches_golden():
     )
     for b in range(B):
         gate = boot.GATE_ORDER[int(gids[b])]
-        want = golden.eval_bin_gate(p, bk, gate, c1[b], c2[b])
+        want = golden.eval_bin_gate(p, bk, gate, c1[b], c2[b], form="rot")
         assert np.array_equal(got[b] % p.q, want % p.q), (b, gate)

@@ -54,7 +54,10 @@ def test_device_matches_golden_bitwise(fix, request):
     ).astype(np.int64)
     for k in range(len(gate_ids)):
         gate = boot.GATE_ORDER[gate_ids[k]]
-        ref = g.eval_bin_gate(MICRO, bk, gate, c1[k].astype(np.int64), c2[k].astype(np.int64))
+        ref = g.eval_bin_gate(
+            MICRO, bk, gate, c1[k].astype(np.int64), c2[k].astype(np.int64),
+            form="rot",
+        )
         assert np.array_equal(out_dev[k], ref), (gate, m1s[k], m2s[k])
     # and they decrypt to the truth table
     got = lwe.decrypt_bits(sk, out_dev)
@@ -100,3 +103,59 @@ def test_eval_not_batch():
     c = lwe.encrypt_bits(sk, m, rng)
     nc = np.asarray(lwe.eval_not_batch(c, TOY.q))
     assert np.array_equal(lwe.decrypt_bits(sk, nc), 1 - m)
+
+
+@pytest.mark.parametrize("n", [16, 17, 21], ids=lambda n: f"n{n}")
+def test_key_switch_padded_width_matches_golden(n):
+    """key_switch_dev pads the key's (n+1)*2 output columns to a multiple of
+    GEMM_ALIGN (34, 36 and 44 -> 36, 36, 44 here) and slices back: the
+    result equals golden.key_switch for every width."""
+    import dataclasses
+
+    p = dataclasses.replace(MICRO, name=f"MICRO_n{n}", n=n)
+    rng = np.random.default_rng(60 + n)
+    sk = g.lwe_keygen(p, rng)
+    z = g.ternary(rng, (p.N,))
+    ksk = g.keyswitch_keygen(p, z, sk, rng)
+    dk = boot.DeviceBootKeys(
+        params=p, method=BinFHEMethod.GINX, brk=None, ap_kext=None,
+        ksk=boot.pack_ksk(p, ksk), tv_table=None,
+    )
+    Qks = p.Q_ks
+    B = 5
+    ct = rng.integers(0, Qks, (B, p.N + 1)).astype(np.int32)
+    got = np.asarray(boot.key_switch_dev(jnp.asarray(ct), dk))
+    assert got.shape == (B, n + 1)
+    for b in range(B):
+        np.testing.assert_array_equal(got[b], g.key_switch(p, ksk, ct[b]))
+
+
+@pytest.mark.parametrize("B", [1, 3, 5, 6])
+def test_odd_batch_padding_matches_unpadded_rows(micro_ginx, B):
+    """bootstrap_batch zero-pads B to a multiple of GEMM_ALIGN and drops the
+    padded rows: each row equals the same row of an aligned batch of 8."""
+    sk, bk, dkeys = micro_ginx
+    rng = np.random.default_rng(70)
+    gids = (np.arange(8) % 6).astype(np.int32)
+    c1 = jnp.asarray(lwe.encrypt_bits(sk, rng.integers(0, 2, 8), rng))
+    c2 = jnp.asarray(lwe.encrypt_bits(sk, rng.integers(0, 2, 8), rng))
+    full = np.asarray(boot.eval_bin_gate_batch(dkeys, jnp.asarray(gids), c1, c2))
+    part = np.asarray(
+        boot.eval_bin_gate_batch(dkeys, jnp.asarray(gids[:B]), c1[:B], c2[:B])
+    )
+    assert part.shape == (B, MICRO.n + 1)
+    np.testing.assert_array_equal(part, full[:B])
+
+
+def test_monomial_rotate_matches_golden():
+    """The per-lane gather rotation == golden.negacyclic_monomial_mul for
+    every amount in [0, 2N) (both signs of the wrap)."""
+    p = MICRO
+    rng = np.random.default_rng(71)
+    c = np.arange(2 * p.N, dtype=np.int32)
+    P = rng.integers(0, p.Q, (c.size, p.N)).astype(np.int64)
+    got = np.asarray(boot.monomial_rotate(
+        jnp.asarray(P.astype(np.int32)), jnp.asarray(c), p.N, p.Q))
+    for k in range(c.size):
+        np.testing.assert_array_equal(
+            got[k], g.negacyclic_monomial_mul(P[k], int(c[k]), p.N, p.Q))

@@ -8,7 +8,7 @@ from oece_tpu.circuits.bristol import parse_bristol
 from oece_tpu.circuits.netlist import Netlist, Op, levelize
 from oece_tpu.runtime.evaluator import Circuit
 
-REF = "/root/reference/examples"
+from oece_tpu.harness.tb import R as REF
 
 
 def bits(v, n):
@@ -114,10 +114,10 @@ def test_levelizer_stats_sha256():
     nl = parse_bristol(f"{REF}/new_bristol_ckts/crypto/sha256.txt")
     plan = levelize(nl)
     s = plan.stats()
-    # depth matches the survey's ASAP computation (SURVEY.md §2.9)
-    assert s["depth"] == 5332
-    assert s["bootstrap_gates"] == 133217
-    assert s["max_level_width"] == 900
+    # the in-repo new-Bristol file's own ASAP schedule
+    assert s["depth"] == 3919
+    assert s["bootstrap_gates"] == 124920
+    assert s["max_level_width"] == 1056
 
 
 def test_levelizer_not_chains_free():

@@ -2,30 +2,18 @@
 
 Two layers of evidence:
   * the jnp packing helpers reproduce the host packers BIT-EXACTLY on the
-    same key material (this pins the subtle windowing/limb logic), and
+    same key material (this pins the limb and layout logic), and
   * keys generated entirely on device produce correct encrypted gate
     results end to end (encrypt -> eval_bin_gate_batch -> decrypt), which
     validates the generation math without requiring RNG parity with golden.
 """
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from oece_tpu.fhe import boot, devkeygen, golden, keycache, lwe, modmath
-from oece_tpu.fhe import pallas_kernels as pk
+from oece_tpu.fhe import boot, devkeygen, golden, lwe, modmath
 from oece_tpu.fhe.params import MICRO, MICRO_A, TOY, BinFHEMethod
-
-
-def test_pack_windows_parity():
-    rng = np.random.default_rng(3)
-    N = 128
-    RM = 8
-    keys_ext = rng.integers(-128, 128, (RM, 2 * N), dtype=np.int64).astype(np.int8)
-    want = pk.pack_keys_for_pallas(keys_ext)  # [2nt-1, 4, RM*SPANW]
-    got = np.asarray(devkeygen._pack_windows(jnp.asarray(keys_ext), N))
-    np.testing.assert_array_equal(got, want)
 
 
 def test_ext_limb_planes_parity():
@@ -60,9 +48,8 @@ def test_negacyclic_by_ternary():
 
 
 @pytest.mark.parametrize("params", [MICRO, MICRO_A], ids=lambda p: p.name)
-def test_device_keys_end_to_end(params, monkeypatch):
+def test_device_keys_end_to_end(params):
     """Keys generated on (virtual) device evaluate all 6 gates correctly."""
-    monkeypatch.setattr(boot, "PALLAS_INTERPRET", True)  # CPU backend
     sk, z, dkeys = devkeygen.device_keygen(params, seed=7)
     rng = np.random.default_rng(8)
     B = 24
@@ -93,112 +80,20 @@ def test_device_keys_deterministic():
     sk1, _, dk1 = devkeygen.device_keygen(MICRO, seed=11)
     sk2, _, dk2 = devkeygen.device_keygen(MICRO, seed=11)
     np.testing.assert_array_equal(sk1.s, sk2.s)
-    assert dk1.ginx_rev is not None
-    np.testing.assert_array_equal(np.asarray(dk1.ginx_rev), np.asarray(dk2.ginx_rev))
+    assert dk1.brk is not None
+    np.testing.assert_array_equal(np.asarray(dk1.brk), np.asarray(dk2.brk))
     sk3, _, _ = devkeygen.device_keygen(MICRO, seed=12)
     assert not np.array_equal(sk1.s, sk3.s)
 
 
-def test_build_rev_true_dev_matches_host():
-    rng = np.random.default_rng(9)
-    N, R, M = 128, 4, 8
-    perm = rng.integers(-128, 128, (3, R * M, 2 * N), dtype=np.int64).astype(np.int8)
-    want = np.stack([pk.build_rev_true_host(p_, R, N) for p_ in perm])
-    got = np.asarray(devkeygen._build_rev_true(jnp.asarray(perm), R, N))
-    np.testing.assert_array_equal(got, want)
-
-
-def test_prebuilt_step_zlb_parity_toy(monkeypatch):
-    """The zero_low_bits barrel-skip path of cmux_epilogue_true is live at
-    TOY (N=512, q=512 => zlb=1) but dead at MICRO (2N == q).  Prebuilt-step
-    parity vs the jnp path with a_col drawn as multiples of 2N/q — the
-    invariant the skip relies on (ADVICE r3).  Synthetic RGSW material: the
-    two paths must agree on ANY key-shaped int8 inputs."""
-    monkeypatch.setattr(boot, "PALLAS_INTERPRET", True)
-    p = TOY
-    Q, N = p.Q, p.N
-    assert 2 * N // p.q == 2  # zlb = 1: the skip is actually exercised
-    rng = np.random.default_rng(20)
-    R = 2 * p.d_g_used
-    n_steps = 2
-    brk = rng.integers(0, Q, (n_steps, 2, R, 2, N), dtype=np.int64)
-    kext = jnp.asarray(boot._poly_ext_limbs(brk, Q))  # [s, 2, R, 2, L, 2N]
-    perm = np.transpose(np.asarray(boot._poly_ext_limbs(brk, Q)),
-                        (0, 2, 1, 3, 4, 5)).reshape(n_steps, -1, 2 * N)
-    rev = jnp.asarray(
-        np.stack([pk.build_rev_true_host(perm[i], R, N) for i in range(n_steps)])
-    )
-    B = 8
-    acc = rng.integers(0, Q, (B, 2, N)).astype(np.int32)
-    a_col = (2 * rng.integers(0, N, (B,))).astype(np.int32)  # multiples of 2N/q
-    i = np.arange(N, dtype=np.int32)
-    idx2n = jnp.asarray((i[None, :] - i[:, None]) & (2 * N - 1))
-    for step in range(n_steps):
-        want = np.asarray(
-            boot._external_cmux_ginx(
-                jnp.asarray(acc), jnp.asarray(a_col), kext[step], idx2n, p
-            )
-        )
-        got = np.asarray(
-            boot._external_cmux_prebuilt(
-                jnp.asarray(acc), jnp.asarray(a_col), rev[step], p,
-                interpret=True,
-            )
-        )
-        np.testing.assert_array_equal(got, want)
-        acc = got  # chain
-
-
-def test_prebuilt_step_bitexact_vs_jnp(monkeypatch):
-    """window_matmul_true + cmux_epilogue_true == _external_cmux_ginx given
-    the same RGSW key material (MICRO, interpret mode)."""
-    monkeypatch.setattr(boot, "PALLAS_INTERPRET", True)
-    p = MICRO
-    rng = np.random.default_rng(10)
-    sk = golden.lwe_keygen(p, rng)
-    bk = golden.bootstrap_keygen(p, sk, rng, BinFHEMethod.GINX)
-    # jnp gather layout for the reference path
-    dk_jnp = boot.pack_bootstrap_key(bk, use_pallas=False)
-    # prebuilt rev from the same brk material
-    Q, N = p.Q, p.N
-    brk = np.stack([bk.brk_pos, bk.brk_neg], axis=1)  # [n, parts, rows, out, N]
-    kext_np = boot._poly_ext_limbs(brk, Q)
-    n = kext_np.shape[0]
-    R = kext_np.shape[2]
-    perm = np.transpose(kext_np, (0, 2, 1, 3, 4, 5)).reshape(n, -1, 2 * p.N)
-    rev = jnp.asarray(np.stack([pk.build_rev_true_host(perm[i], R, N) for i in range(n)]))
-
-    B = 8
-    acc = rng.integers(0, Q, (B, 2, N)).astype(np.int32)
-    a_col = rng.integers(0, 2 * N, (B,)).astype(np.int32)
-    i = np.arange(N, dtype=np.int32)
-    idx2n = jnp.asarray((i[None, :] - i[:, None]) & (2 * N - 1))
-    for step in (0, 3):
-        want = np.asarray(
-            boot._external_cmux_ginx(
-                jnp.asarray(acc), jnp.asarray(a_col), dk_jnp.ginx_kext[step],
-                idx2n, p,
-            )
-        )
-        got = np.asarray(
-            boot._external_cmux_prebuilt(
-                jnp.asarray(acc), jnp.asarray(a_col), rev[step], p,
-                interpret=True,
-            )
-        )
-        np.testing.assert_array_equal(got, want)
-        acc = got  # chain
-
-
-def test_device_keygen_ap_end_to_end(monkeypatch):
+def test_device_keygen_ap_end_to_end():
     """Binary-base AP keys generated ON DEVICE evaluate all 6 gates
-    correctly through the AP megakernel (VERDICT r3 #5)."""
+    correctly through the shared-key AP step."""
     import dataclasses
 
-    monkeypatch.setattr(boot, "PALLAS_INTERPRET", True)
     p = dataclasses.replace(MICRO_A, name="MICRO_AP2", B_r=2)
     sk, z, dkeys = devkeygen.device_keygen_ap(p, seed=7)
-    assert dkeys.ap_pallas is not None and dkeys.method.name == "AP"
+    assert dkeys.brk is not None and dkeys.method.name == "AP"
     rng = np.random.default_rng(8)
     B = 12
     m1 = rng.integers(0, 2, B)
@@ -225,3 +120,56 @@ def test_device_keygen_ap_shares_secrets_with_ginx():
     sk_a, _, dk_a = devkeygen.device_keygen_ap(p, seed=13)
     np.testing.assert_array_equal(sk_g.s, sk_a.s)
     np.testing.assert_array_equal(np.asarray(dk_g.ksk), np.asarray(dk_a.ksk))
+
+
+@pytest.mark.parametrize("params", [MICRO, TOY], ids=lambda p: p.name)
+def test_kept_layout_device_matches_host(params):
+    """devkeygen.pack_layout (jnp, on device) == boot.toeplitz_blocks
+    (NumPy) on golden GINX key material: the device keygen emits exactly
+    the layout pack_bootstrap_key builds from golden keys."""
+    rng = np.random.default_rng(31)
+    p = params
+    R = 2 * p.d_g_used
+    polys = rng.integers(0, p.Q, (2, 2, R, 2, p.N), dtype=np.int64)
+    kext = boot._poly_ext_limbs(polys, p.Q)  # [steps, P, R, out, L, 2N]
+    want = boot.toeplitz_blocks(kext)
+    got = np.asarray(devkeygen.pack_layout(jnp.asarray(kext)))
+    np.testing.assert_array_equal(got, want)
+
+
+def test_pack_bootstrap_key_from_golden_keys():
+    """pack_bootstrap_key(golden keys) == device layout of the same rows."""
+    p = MICRO
+    rng = np.random.default_rng(32)
+    sk = golden.lwe_keygen(p, rng)
+    bk = golden.bootstrap_keygen(p, sk, rng, BinFHEMethod.GINX)
+    dk = boot.pack_bootstrap_key(bk)
+    polys = np.stack([bk.brk_pos, bk.brk_neg], axis=1) % p.Q
+    kext = devkeygen._ext_limb_planes(jnp.asarray(polys, jnp.int32), p.Q)
+    got = np.asarray(devkeygen.pack_layout(kext))
+    np.testing.assert_array_equal(got, np.asarray(dk.brk))
+
+
+def test_ap_binary_step_bitexact_vs_golden():
+    """Binary-base AP (B_r = 2): the shared-key step + public-bit select ==
+    golden.blind_rotate_ap, bit-exact, through the full gate bootstrap."""
+    import dataclasses
+
+    p = dataclasses.replace(MICRO, name="MICRO_AP2", B_r=2)
+    rng = np.random.default_rng(33)
+    sk = golden.lwe_keygen(p, rng)
+    bk = golden.bootstrap_keygen(p, sk, rng, BinFHEMethod.AP)
+    dk = boot.pack_bootstrap_key(bk)
+    assert dk.brk is not None and dk.brk.shape[0] == p.n * p.d_r
+    B = 12
+    gids = (np.arange(B) % 6).astype(np.int32)
+    c1 = lwe.encrypt_bits(sk, rng.integers(0, 2, B), rng)
+    c2 = lwe.encrypt_bits(sk, rng.integers(0, 2, B), rng)
+    got = np.asarray(boot.eval_bin_gate_batch(
+        dk, jnp.asarray(gids), jnp.asarray(c1), jnp.asarray(c2)))
+    for k in range(B):
+        want = golden.eval_bin_gate(
+            p, bk, boot.GATE_ORDER[gids[k]], c1[k].astype(np.int64),
+            c2[k].astype(np.int64),
+        )
+        np.testing.assert_array_equal(got[k], want)

@@ -9,9 +9,10 @@ import numpy as np
 import pytest
 
 from oece_tpu.circuits.asm import parse_asm
+from oece_tpu.harness.tb import R
 from oece_tpu.runtime.evaluator import Circuit
 
-ADDER = "/root/reference/examples/simple_ckts/adder_2bit/adder_2bit.out"
+ADDER = f"{R}/simple_ckts/adder_2bit/adder_2bit.out"
 
 
 def bits(v, n):
@@ -83,7 +84,7 @@ def test_reset_required_after_clock():
 
 
 def test_level_jit_matches_eager(monkeypatch):
-    """The fused per-level jit path (OECE_LEVEL_JIT=1; the TPU production
+    """The fused per-level jit path (OECE_LEVEL_JIT=1; the accelerator
     engine: one donated-arena device program per level chunk with padded
     index buckets) produces the same decrypted outputs and zero bad gates
     as the eager per-level glue, given identical keys."""

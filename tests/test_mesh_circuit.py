@@ -1,6 +1,6 @@
 """Multi-device circuit evaluation (VERDICT r1 item 2): Clock() a real
 circuit with the level batches sharded over a dp[xtp] mesh on the virtual
-8-device CPU backend, for both key layouts.
+8-device CPU backend.
 
 Reference analogue: the whole-runtime OpenMP gate parallelism of
 circuit.cpp:698-710 — here the parallelism covers the full Circuit engine,
@@ -12,8 +12,6 @@ import os
 import numpy as np
 import pytest
 
-import jax
-
 from oece_tpu.parallel.mesh import make_mesh
 from oece_tpu.runtime.evaluator import Circuit
 
@@ -22,16 +20,10 @@ ADDER = os.path.join(
     "adder_2bit", "adder_2bit.out",
 )
 
-pytestmark = pytest.mark.skipif(
-    len(jax.devices()) < 8, reason="needs the 8-device virtual CPU mesh"
-)
+pytestmark = pytest.mark.usefixtures("eight_devices")
 
 
-def _run_adder(mesh, use_pallas_interpret=False, monkeypatch=None):
-    if use_pallas_interpret:
-        from oece_tpu.fhe import boot
-
-        monkeypatch.setattr(boot, "PALLAS_INTERPRET", True)
+def _run_adder(mesh):
     circ = Circuit(set="MICRO", method="GINX", seed=0, mesh=mesh)
     circ.ReadFile(ADDER)
     circ.setVerify(True)
@@ -52,28 +44,13 @@ def _run_adder(mesh, use_pallas_interpret=False, monkeypatch=None):
 
 
 def test_circuit_dp_tp_jnp_layout():
-    mesh = make_mesh(8, tp=2)  # dp=4 x tp=2, jnp key layout
+    mesh = make_mesh(8, tp=2)  # dp=4 x tp=2, RGSW key rows over tp
     _run_adder(mesh)
 
 
-def test_circuit_dp_pallas_layout(monkeypatch):
-    """dp-only mesh with the Pallas key layout — the exact production TPU
-    path (fused kernel under shard_map), run via the Pallas interpreter."""
-    mesh = make_mesh(8, tp=1)  # dp=8
-    _run_adder(mesh, use_pallas_interpret=True, monkeypatch=monkeypatch)
-
-
-def test_circuit_dp_device_keygen_rev_layout(monkeypatch):
-    """Device keygen x dp mesh — the PRODUCTION TPU combination (VERDICT r3
-    #2: `Circuit(set=..., mesh=...)` after device keygen used to crash
-    because shard_bootstrap_keys silently dropped the ginx_rev layout).
-    Forces the device-keygen path on the CPU mesh via the interpret-mode
-    Pallas kernels and checks end-to-end correctness + bit-parity with the
-    unsharded device-keygen evaluation."""
-    from oece_tpu.fhe import boot
-
-    monkeypatch.setattr(boot, "PALLAS_INTERPRET", True)
-    monkeypatch.setenv("OECE_FORCE_DEVICE_KEYGEN", "1")
+def test_circuit_dp_device_keygen_rev_layout():
+    """Device keygen x dp mesh (the production combination): end-to-end
+    correctness + bit-parity with the unsharded evaluation."""
 
     rng_in = np.random.default_rng(7)
     in1 = rng_in.integers(0, 2, (4, 2))
@@ -81,9 +58,7 @@ def test_circuit_dp_device_keygen_rev_layout(monkeypatch):
 
     def run(mesh):
         c = Circuit(set="MICRO", method="GINX", seed=3, mesh=mesh)
-        assert (
-            c.dkeys.ginx_rev is not None or c.dkeys.ginx_rev2 is not None
-        ), "device keygen must be in force"
+        assert c.dkeys.brk is not None
         c.ReadFile(ADDER)
         c.setVerify(True)
         c.SetInput([in1, in2])
@@ -121,22 +96,17 @@ def test_circuit_mesh_matches_single_device():
     assert np.array_equal(a, b)
 
 
-def test_circuit_dp_ap_device_keygen(monkeypatch):
-    """AP method x dp mesh x device keygen (the combination the r4 review
-    found crashing in shard_bootstrap_keys): end-to-end correct on the
-    virtual mesh via the AP megakernel."""
+def test_circuit_dp_ap_device_keygen():
+    """AP method x dp mesh x device keygen: end-to-end correct on the
+    virtual mesh via the shared-key binary AP step."""
     import dataclasses
 
-    from oece_tpu.fhe import boot
     from oece_tpu.fhe.params import MICRO_A
-
-    monkeypatch.setattr(boot, "PALLAS_INTERPRET", True)
-    monkeypatch.setenv("OECE_FORCE_DEVICE_KEYGEN", "1")
 
     p = dataclasses.replace(MICRO_A, name="MICRO_AP2", B_r=2)
     mesh = make_mesh(8, tp=1)
     c = Circuit(set=p, method="AP", seed=5, mesh=mesh)
-    assert c.dkeys.ap_pallas is not None and c.dkeys.method.name == "AP"
+    assert c.dkeys.brk is not None and c.dkeys.method.name == "AP"
     c.ReadFile(ADDER)
     c.setVerify(True)
     in1 = np.array([[1, 0], [0, 1]])

@@ -7,7 +7,7 @@ from oece_tpu.circuits import native
 from oece_tpu.circuits.bristol import parse_bristol
 from oece_tpu.circuits.netlist import levelize
 
-REF = "/root/reference/examples"
+from oece_tpu.harness.tb import R as REF
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="native library not built"
@@ -42,4 +42,4 @@ def test_native_levelize_used_and_consistent():
     assert lv_native is not None
     plan = levelize(nl)  # uses native automatically
     s = plan.stats()
-    assert s["depth"] == 5332 and s["bootstrap_gates"] == 133217
+    assert s["depth"] == 3919 and s["bootstrap_gates"] == 124920

@@ -18,7 +18,7 @@ def test_bootstrap_noise_within_budget():
     rng = np.random.default_rng(42)
     sk = golden.lwe_keygen(p, rng)
     bk = golden.bootstrap_keygen(p, sk, rng, BinFHEMethod.GINX)
-    dkeys = boot.pack_bootstrap_key(bk, use_pallas=False)
+    dkeys = boot.pack_bootstrap_key(bk)
     B = 256
     truth = [
         lambda a, b: a & b, lambda a, b: a | b, lambda a, b: 1 - (a & b),

@@ -8,7 +8,6 @@ path — the sharding must not change any integer result.
 import numpy as np
 import pytest
 
-import jax
 import jax.numpy as jnp
 
 from oece_tpu.fhe import boot, golden as g, lwe
@@ -21,13 +20,12 @@ def setup():
     rng = np.random.default_rng(21)
     sk = g.lwe_keygen(MICRO, rng)
     bk = g.bootstrap_keygen(MICRO, sk, rng, BinFHEMethod.GINX)
-    dkeys = boot.pack_bootstrap_key(bk, use_pallas=False)
+    dkeys = boot.pack_bootstrap_key(bk)
     return sk, dkeys
 
 
-@pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 virtual devices")
 @pytest.mark.parametrize("tp", [1, 2, 4])
-def test_sharded_matches_single_device(setup, tp):
+def test_sharded_matches_single_device(setup, tp, eight_devices):
     sk, dkeys = setup
     rng = np.random.default_rng(5)
     n_dev = 8

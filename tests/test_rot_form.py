@@ -1,13 +1,13 @@
-"""The rotated-difference GINX step (ROOFLINE §4 lever 2).
+"""The rotated-difference GINX step (the device blind-rotation step).
 
-Three layers of evidence, mirroring the r3 prebuilt-path test strategy:
+Three layers of evidence:
   * golden.blind_rotate_ginx_rot produces correct gate results (the form
     itself is sound crypto — it is the original CGGI CMUX);
-  * pk.rot_step_true is BIT-EXACT vs the golden rot-form step given the
-    same RGSW key material (MICRO exact gadget, MICRO_A approximate, TOY
-    zero-low-bits barrel skip);
-  * device_keygen(layout="rev2") keys evaluate all six gates correctly end
-    to end through eval_bin_gate_batch.
+  * boot.ginx_step is BIT-EXACT vs the golden rot-form step given the same
+    RGSW key material (MICRO exact gadget, MICRO_A approximate, TOY with
+    several output tiles);
+  * device_keygen keys evaluate all six gates correctly end to end through
+    eval_bin_gate_batch.
 """
 
 import numpy as np
@@ -16,8 +16,7 @@ import pytest
 import jax.numpy as jnp
 
 from oece_tpu.fhe import boot, devkeygen, golden, lwe
-from oece_tpu.fhe import pallas_kernels as pk
-from oece_tpu.fhe.params import MICRO, MICRO_A, TOY, BinFHEMethod, BinGate
+from oece_tpu.fhe.params import MICRO, MICRO_A, TOY, BinFHEMethod
 
 TRUTH = [
     lambda a, b: a & b, lambda a, b: a | b, lambda a, b: 1 - (a & b),
@@ -37,29 +36,15 @@ def _golden_rot_step(p, acc, ai, brk_pos_i, brk_neg_i):
     return (acc + p_pos + p_neg) % Q
 
 
-def _rev2_from_brk(p, brk_pos_i, brk_neg_i):
-    """Part-interleaved true-layout diagonals for one step from golden key
-    rows (devkeygen rev2 layout: row (d', p, r, u) at d'*2RT+p*RT+r*T+u)."""
-    Q, N = p.Q, p.N
-    R = 2 * p.d_g_used
-    T = pk.TILE
-    nt = N // T
-    brk = np.stack([brk_pos_i, brk_neg_i])  # [2, rows, out, N]
-    kext = boot._poly_ext_limbs(brk, Q)  # [2, rows, out, L, 2N]
-    perm = kext.reshape(2, -1, 2 * N)  # rows r-major, m=(out,limb) minor
-    rev_p = np.stack(
-        [pk.build_rev_true_host(perm[part], R, N) for part in (0, 1)]
-    )  # [2, ndiag*R*T, MT]
-    MT = rev_p.shape[-1]
-    return jnp.asarray(
-        rev_p.reshape(2, 2 * nt - 1, R * T, MT)
-        .transpose(1, 0, 2, 3)
-        .reshape((2 * nt - 1) * 2 * R * T, MT)
-    )
+def _key_from_brk(p, brk_pos_i, brk_neg_i):
+    """One step of DeviceBootKeys.brk from golden key rows."""
+    brk = np.stack([brk_pos_i, brk_neg_i])[None]  # [1, part, rows, out, N]
+    kext = boot._poly_ext_limbs(brk, p.Q)
+    return jnp.asarray(boot.toeplitz_blocks(kext)[0])
 
 
 @pytest.mark.parametrize("params", [MICRO, MICRO_A, TOY], ids=lambda p: p.name)
-def test_rot_step_bitexact_vs_golden(params, monkeypatch):
+def test_rot_step_bitexact_vs_golden(params):
     p = params
     rng = np.random.default_rng(51)
     Q, N = p.Q, p.N
@@ -74,13 +59,13 @@ def test_rot_step_bitexact_vs_golden(params, monkeypatch):
     acc = acc0.copy()
     acc_dev = jnp.asarray(acc0.astype(np.int32))
     for step in range(2):
-        rev2 = _rev2_from_brk(p, brk[step, 0], brk[step, 1])
+        key = _key_from_brk(p, brk[step, 0], brk[step, 1])
         want = np.stack([
             _golden_rot_step(p, acc[b_], int(a_col[b_]), brk[step, 0], brk[step, 1])
             for b_ in range(B)
         ])
-        got_dev = boot._external_cmux_rot(
-            acc_dev, jnp.asarray(a_col), rev2, p, interpret=True
+        got_dev = boot.ginx_step(
+            acc_dev, jnp.asarray(a_col), key, p
         )
         np.testing.assert_array_equal(np.asarray(got_dev), want)
         acc = want
@@ -107,11 +92,10 @@ def test_golden_rot_form_gates_correct():
 
 
 @pytest.mark.parametrize("params", [MICRO, MICRO_A], ids=lambda p: p.name)
-def test_device_keys_rev2_end_to_end(params, monkeypatch):
-    """device_keygen(layout='rev2') -> eval_bin_gate_batch: correct gates."""
-    monkeypatch.setattr(boot, "PALLAS_INTERPRET", True)
-    sk, z, dkeys = devkeygen.device_keygen(params, seed=7, layout="rev2")
-    assert dkeys.ginx_rev2 is not None and dkeys.ginx_rev is None
+def test_device_keys_rev2_end_to_end(params):
+    """device_keygen -> eval_bin_gate_batch: correct gates."""
+    sk, z, dkeys = devkeygen.device_keygen(params, seed=7)
+    assert dkeys.brk is not None and dkeys.brk.shape[0] == params.n
     rng = np.random.default_rng(8)
     B = 24
     m1 = rng.integers(0, 2, B)
@@ -128,113 +112,3 @@ def test_device_keys_rev2_end_to_end(params, monkeypatch):
     )
     want2 = np.array([TRUTH[g](int(a), int(b)) for g, a, b in zip(gids, want, m1)])
     np.testing.assert_array_equal(lwe.decrypt_bits(sk, out2), want2)
-
-
-def test_rev2_same_key_material_as_rev():
-    """layouts 'rev' and 'rev2' of the same seed hold the SAME key material
-    (the dense blocks are relayouts of identical RGSW rows): both evaluate
-    gates to the same decrypted results and share the LWE secret."""
-    sk1, _, dk1 = devkeygen.device_keygen(MICRO, seed=9, layout="rev")
-    sk2, _, dk2 = devkeygen.device_keygen(MICRO, seed=9, layout="rev2")
-    np.testing.assert_array_equal(sk1.s, sk2.s)
-    assert dk1.ginx_rev.shape[0] == dk2.ginx_rev2.shape[0]
-    # rev holds [n, ndiag*R*T, 16*T]; rev2 the part-interleaved
-    # [n, ndiag*2*R*T, 8*T] — same bytes, different block order
-    assert dk1.ginx_rev.size == dk2.ginx_rev2.size
-
-
-def test_rot_megakernel_matches_scan(monkeypatch):
-    """blind_rotate_rot_megakernel (whole rotation, one pallas_call) ==
-    the per-step scan, bit-exact, MICRO + MICRO_A (interpret mode)."""
-    monkeypatch.setattr(boot, "PALLAS_INTERPRET", True)
-    for params in (MICRO, MICRO_A):
-        sk, z, dkeys = devkeygen.device_keygen(params, seed=7, layout="rev2")
-        rng = np.random.default_rng(9)
-        B = 8
-        acc = jnp.asarray(
-            rng.integers(0, params.Q, (B, 2, params.N)).astype(np.int32)
-        )
-        scale = 2 * params.N // params.q
-        a2N = jnp.asarray(
-            (scale * rng.integers(0, params.q, (B, params.n))).astype(np.int32)
-        )
-        monkeypatch.setattr(boot, "ROT_MEGA", False)
-        want = np.asarray(boot.blind_rotate_ginx_dev(acc, a2N, dkeys))
-        monkeypatch.setattr(boot, "ROT_MEGA", True)
-        got = np.asarray(boot.blind_rotate_ginx_dev(acc, a2N, dkeys))
-        np.testing.assert_array_equal(got, want)
-
-
-def test_rot_megakernel_end_to_end_gates(monkeypatch):
-    """Full gate evaluation through the rot megakernel decrypts correctly
-    (MICRO_A, both batch-chunk counts: B < TB and B = 2*TB)."""
-    monkeypatch.setattr(boot, "PALLAS_INTERPRET", True)
-    monkeypatch.setattr(boot, "ROT_MEGA", True)
-    sk, z, dkeys = devkeygen.device_keygen(MICRO_A, seed=7, layout="rev2")
-    rng = np.random.default_rng(10)
-    for B, block in ((12, 1024), (8, 4)):
-        monkeypatch.setattr(boot, "FUSED_MAX_B", block)
-        m1 = rng.integers(0, 2, B)
-        m2 = rng.integers(0, 2, B)
-        gids = np.arange(B, dtype=np.int32) % 6
-        c1 = jnp.asarray(lwe.encrypt_bits(sk, m1, rng))
-        c2 = jnp.asarray(lwe.encrypt_bits(sk, m2, rng))
-        out = np.asarray(
-            boot.eval_bin_gate_batch(dkeys, jnp.asarray(gids), c1, c2)
-        )
-        want = np.array(
-            [TRUTH[g](int(a), int(b)) for g, a, b in zip(gids, m1, m2)]
-        )
-        np.testing.assert_array_equal(lwe.decrypt_bits(sk, out), want)
-
-
-def test_rot_megakernel_pipelined_matches(monkeypatch):
-    """The H-way VPU/MXU-pipelined megakernel (pk._rot_megakernel_pipe) is
-    bit-exact vs the single-chunk kernel for every H, including through the
-    full gate pipeline (MICRO_A, interpret mode)."""
-    monkeypatch.setattr(boot, "PALLAS_INTERPRET", True)
-    monkeypatch.setattr(boot, "ROT_MEGA", True)
-    sk, z, dkeys = devkeygen.device_keygen(MICRO_A, seed=11, layout="rev2")
-    rng = np.random.default_rng(12)
-    B = 16
-    m1 = rng.integers(0, 2, B)
-    m2 = rng.integers(0, 2, B)
-    gids = np.arange(B, dtype=np.int32) % 6
-    c1 = jnp.asarray(lwe.encrypt_bits(sk, m1, rng))
-    c2 = jnp.asarray(lwe.encrypt_bits(sk, m2, rng))
-    monkeypatch.setattr(boot, "ROT_PIPE", 0)
-    want = np.asarray(boot.eval_bin_gate_batch(dkeys, jnp.asarray(gids), c1, c2))
-    truth = np.array([TRUTH[g](int(a), int(b)) for g, a, b in zip(gids, m1, m2)])
-    np.testing.assert_array_equal(lwe.decrypt_bits(sk, want), truth)
-    for H in (2, 4, 8):
-        monkeypatch.setattr(boot, "ROT_PIPE", H)
-        got = np.asarray(
-            boot.eval_bin_gate_batch(dkeys, jnp.asarray(gids), c1, c2)
-        )
-        np.testing.assert_array_equal(got, want)
-    # non-divisible fallback: H that does not divide the batch block
-    monkeypatch.setattr(boot, "ROT_PIPE", 3)
-    got = np.asarray(boot.eval_bin_gate_batch(dkeys, jnp.asarray(gids), c1, c2))
-    np.testing.assert_array_equal(got, want)
-
-
-def test_rot_fused_parts_bitexact(monkeypatch):
-    """OECE_ROT_FUSEPARTS merges the two parts' barrel chunk loops —
-    bit-identical outputs to the unfused schedule."""
-    monkeypatch.setattr(boot, "PALLAS_INTERPRET", True)
-    monkeypatch.setattr(boot, "ROT_MEGA", True)
-    from oece_tpu.fhe import pallas_kernels as pk
-
-    sk, z, dkeys = devkeygen.device_keygen(MICRO_A, seed=13, layout="rev2")
-    rng = np.random.default_rng(14)
-    B = 8
-    m1 = rng.integers(0, 2, B)
-    m2 = rng.integers(0, 2, B)
-    gids = np.arange(B, dtype=np.int32) % 6
-    c1 = jnp.asarray(lwe.encrypt_bits(sk, m1, rng))
-    c2 = jnp.asarray(lwe.encrypt_bits(sk, m2, rng))
-    monkeypatch.setattr(pk, "FUSE_PARTS", False)
-    want = np.asarray(boot.eval_bin_gate_batch(dkeys, jnp.asarray(gids), c1, c2))
-    monkeypatch.setattr(pk, "FUSE_PARTS", True)
-    got = np.asarray(boot.eval_bin_gate_batch(dkeys, jnp.asarray(gids), c1, c2))
-    np.testing.assert_array_equal(got, want)

@@ -1,17 +1,11 @@
-"""Negacyclic-NTT speed-of-light microbenchmark (BASELINE.md item 4).
+"""Negacyclic-NTT microbenchmark on the GPU (BASELINE.md item 4).
 
-ROOFLINE §3 argues the dense int8-MXU formulation of the GINX step beats an
-NTT-based step on this chip (the NTT is VPU-bound int32 butterflies; the
-MXU is the 294-TOPS unit).  This tool MEASURES both sides:
-
-  * batched forward/inverse device NTT (fhe/ntt_dev.py, bit-exact vs the
-    host reference), chained through the transform to defeat the relay's
-    execution memoization, one final fetch as the barrier;
-  * the derived NTT-based CMUX step cost at STD128_OPT shapes
-    (R digit-poly forward NTTs + 2R pointwise mult-accumulates + 2 inverse
-    NTTs per gate per step), vs the measured dense-MXU step from BENCH.
-
-Writes artifacts/ntt_microbench.json.
+Measures the batched forward/inverse device NTT (fhe/ntt_dev.py, bit-exact
+vs the host reference), chained through the transform, and derives the
+NTT-based CMUX step cost at STD128_OPT shapes (R digit-poly forward NTTs +
+2 inverse NTTs per gate per step, pointwise work treated as free).  Compare
+it with the dense int8 step of the same card (bench.py / chip_smoke.py).
+Without a GPU the script exits before measuring.
 
 Usage: python tools/bench_ntt.py [batch=4096] [iters=8]
 """
@@ -23,10 +17,6 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from oece_tpu.utils import apply_platform_env
-
-apply_platform_env()
-
 from oece_tpu.utils.compcache import enable_compilation_cache
 
 enable_compilation_cache()
@@ -35,17 +25,17 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from oece_tpu.fhe import ntt, ntt_dev
+from oece_tpu.fhe import ntt_dev
 from oece_tpu.fhe.params import Q27, STD128_OPT
 
 
 def main():
+    import chip_smoke
+
+    card = chip_smoke.phase_device()
     B = int(sys.argv[1]) if len(sys.argv) > 1 else 4096
     iters = int(sys.argv[2]) if len(sys.argv) > 2 else 8
     N = 1024
-    on_accel = jax.default_backend() not in ("cpu",)
-    if not on_accel:
-        B, iters = min(B, 64), min(iters, 2)
     rng = np.random.default_rng(0)
     a0 = jnp.asarray(rng.integers(0, Q27, (B, N)), jnp.int32)
 
@@ -58,11 +48,11 @@ def main():
 
     def timed(fn, x):
         x = fn(x)  # compile + warm
-        np.asarray(x[0, :1])
+        jax.block_until_ready(x)
         t0 = time.time()
         for _ in range(iters):
             x = fn(x)  # chained: output feeds input (valid domain both ways)
-        np.asarray(x[0, :1])
+        jax.block_until_ready(x)
         return (time.time() - t0) / iters, x
 
     t_fwd, _ = timed(fwd, a0)
@@ -75,20 +65,16 @@ def main():
     # of the output pair (pointwise mult-adds are comparatively free).
     R = 2 * STD128_OPT.d_g_used
     us_step_ntt = R * us_fwd + 2 * us_inv  # per gate
-    # Measured dense-MXU step (BENCH r4 "rot" tier, decrypt-verified):
-    # 504 ms per 1024-gate batch over 502 steps.
-    us_step_dense = 504_000.0 / 502 / 1024
 
     res = {
-        "backend": jax.default_backend(),
+        "card": card,
+        "device_kind": jax.devices()[0].device_kind,
         "N": N,
         "batch": B,
         "iters": iters,
         "us_per_poly_forward": round(us_fwd, 3),
         "us_per_poly_inverse": round(us_inv, 3),
         "derived_ntt_step_us_per_gate": round(us_step_ntt, 3),
-        "measured_dense_mxu_step_us_per_gate": round(us_step_dense, 3),
-        "dense_speedup_x": round(us_step_ntt / us_step_dense, 2),
         "note": (
             "NTT transforms are exact int32 (bit-identical to the host "
             "reference); chained executions, fetch barrier.  The derived "
@@ -96,11 +82,7 @@ def main():
             "and treats NTT-domain pointwise work as free (favoring NTT)."
         ),
     }
-    os.makedirs("artifacts", exist_ok=True)
-    with open("artifacts/ntt_microbench.json", "w") as f:
-        json.dump(res, f, indent=1)
     print(json.dumps(res))
-    print("# written artifacts/ntt_microbench.json", file=sys.stderr)
 
 
 if __name__ == "__main__":

@@ -1,15 +1,14 @@
 """Two-process jax.distributed dryrun (VERDICT r3 #9).
 
-The rig has one physical TPU chip, so real multi-host execution is
-impossible; this dryrun proves the DISTRIBUTED CODE PATH instead: two OS
+This dryrun proves the DISTRIBUTED CODE PATH without several hosts: two OS
 processes, each owning 4 virtual CPU devices, join a jax.distributed
 coordination service and evaluate one dp-sharded encrypted gate batch as a
 single 8-device SPMD program.  Each process holds only its addressable
 shards; every process decrypts and checks its local gates.
 
 This is the same Mesh/NamedSharding/shard_map code the single-process
-virtual mesh and the (unavailable) real pod-slice would run — jax inserts
-DCN/ICI collectives from the shardings, so nothing in oece_tpu changes
+virtual mesh and several GPU hosts would run — jax inserts the
+collectives from the shardings, so nothing in oece_tpu changes
 between 1 process and N (SURVEY §2.7's distribution design).
 
 Usage:  python tools/dryrun_multihost.py            # parent: spawns 2 procs
@@ -56,7 +55,7 @@ def child(rank: int) -> None:
     p = MICRO
     sk = golden.lwe_keygen(p, rng)
     bk = golden.bootstrap_keygen(p, sk, rng, BinFHEMethod.GINX)
-    dkeys = boot.pack_bootstrap_key(bk, use_pallas=False)
+    dkeys = boot.pack_bootstrap_key(bk)
     dkeys = mesh_mod.shard_bootstrap_keys(dkeys, mesh)  # replicated/tp=1
 
     B = 4 * n_global

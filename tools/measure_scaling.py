@@ -1,14 +1,11 @@
 """dp/tp sharding-overhead measurement on the virtual 8-device mesh
 (VERDICT r3 #9 / BASELINE.md goal 3).
 
-What CAN be measured on this rig: the cost the mesh partitioner adds to the
-gate-bootstrap program (sharded vs unsharded wall at the SAME global batch
-on the SAME backend), and the collective structure of the compiled
-programs.  What CANNOT: real speedup — the 8 "devices" are virtual CPU
-devices sharing one socket, so dp-8 wall-clock says nothing about an
-8-chip pod.  The dp path is embarrassingly parallel (keys replicated, no
-collectives), so on real chips its scaling efficiency equals
-1 - overhead_ratio measured here minus ICI allgather of produced wires.
+What CAN be measured on virtual CPU devices: the collective structure of
+the compiled programs and that every sharding reproduces the unsharded
+ciphertexts bit for bit.  What CANNOT: speedup — the 8 "devices" share one
+CPU socket, so the walls say nothing about several GPUs (chip_smoke.py
+--four-cards measures the dp path on real cards).
 
 Writes artifacts/scaling_virtual.json.
 """
@@ -53,7 +50,7 @@ def main():
     rng = np.random.default_rng(0)
     sk = golden.lwe_keygen(p, rng)
     bk = golden.bootstrap_keygen(p, sk, rng, BinFHEMethod.GINX)
-    dkeys = boot.pack_bootstrap_key(bk, use_pallas=False)
+    dkeys = boot.pack_bootstrap_key(bk)
 
     B = 32  # global batch, divisible by every dp size
     bits = rng.integers(0, 2, B)
@@ -95,22 +92,19 @@ def main():
         })
         print(rows[-1], flush=True)
 
-    # production key layout (prebuilt rev, interpret-mode Pallas): collective
-    # structure only — interpret walls are python-speed, not comparable.
-    boot.PALLAS_INTERPRET = True
+    # device-keygen keys: collective structure of the dp-only path
     from oece_tpu.fhe import devkeygen
 
-    _sk2, _z2, dk_rev = devkeygen.device_keygen(p, seed=0, layout="rev")
+    _sk2, _z2, dk_dev = devkeygen.device_keygen(p, seed=0)
     mesh8 = mesh_mod.make_mesh(8, tp=1)
-    dk_rev = mesh_mod.shard_bootstrap_keys(dk_rev, mesh8)
-    fn_rev = mesh_mod.make_sharded_gate_fn(dk_rev, mesh8)
+    dk_dev = mesh_mod.shard_bootstrap_keys(dk_dev, mesh8)
+    fn_dev = mesh_mod.make_sharded_gate_fn(dk_dev, mesh8)
     rows.append({
-        "config": "dp=8 tp=1, PRODUCTION rev layout",
+        "config": "dp=8 tp=1, device keygen",
         "wall_s_per_batch": None,
         "collectives_in_hlo": count_collectives(
-            lambda g, a, b: fn_rev(g, a, b), gids, c1, c2
+            lambda g, a, b: fn_dev(g, a, b), gids, c1, c2
         ),
-        "note": "interpret-mode compile: structure only",
     })
     print(rows[-1], flush=True)
 
@@ -121,19 +115,14 @@ def main():
         "honesty": (
             "The 8 'devices' share one CPU socket and XLA:CPU mostly "
             "serializes their programs, so wall_ratio does NOT measure "
-            "multi-chip speedup.  What it does expose: the jnp key layout "
-            "re-does its batch-independent dense negacyclic build per "
-            "device, so its per-device work barely shrinks with dp — on "
-            "real chips the production prebuilt layouts (rev/rev2) have no "
-            "per-step build and the dp axis is embarrassingly parallel.  "
-            "The collectives_in_hlo column is the structural evidence this "
-            "rig CAN give.  jnp-layout rows show 2 all-reduces even at "
-            "tp=1: the unconditional size-1-axis psums of the blind-rotate "
-            "and key-switch contractions (no-op traffic).  The PRODUCTION "
-            "rev-layout dp row is the one that matters for pod scaling — "
-            "its collective count is the program's real cross-device "
-            "traffic; the only other multi-chip traffic is the evaluator's "
-            "per-level produced-wire allgather."
+            "multi-device speedup.  What it does expose: the per-step "
+            "dense key build is batch-independent, so per-device work "
+            "barely shrinks with dp on this backend.  The "
+            "collectives_in_hlo column is the structural evidence a CPU "
+            "run CAN give: golden-key rows show 2 all-reduces even at "
+            "tp=1 (the size-1-axis psums of the blind-rotate and "
+            "key-switch contractions, no-op traffic); the device-keygen dp "
+            "row's count is the program's cross-device traffic."
         ),
         "rows": rows,
     }

@@ -9,7 +9,7 @@ carry fresh noise, so that correlation mechanism cannot exist in these
 circuits.  This tool measures the regime directly instead of modeling it:
 
   * per-gate-type CHAINED bootstrap loops (XOR-only, AND-only, ...) at
-    production parameters on the TPU — the output failure rate per type;
+    production parameters on the accelerator — the output failure rate per type;
   * the INPUT-side margin: the centered phase error of the prepared
     linear combination w1*c1 + w2*c2 that the blind rotation actually
     decides on, histogrammed on device.  XOR preps 2(c1-c2): noise 2*sqrt2
@@ -29,10 +29,6 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from oece_tpu.utils import apply_platform_env
-
-apply_platform_env()
-
 from oece_tpu.utils.compcache import enable_compilation_cache
 
 enable_compilation_cache()
@@ -41,8 +37,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from oece_tpu.fhe import boot, keycache, lwe
-from oece_tpu.fhe.params import PARAM_SETS, BinFHEMethod
+from oece_tpu.fhe import boot, lwe
+from oece_tpu.fhe.params import PARAM_SETS
 
 GATE_NAMES = ["AND", "OR", "NAND", "NOR", "XOR", "XNOR"]
 
@@ -96,14 +92,10 @@ def main():
     p = PARAM_SETS[name]
     q, n = p.q, p.n
     rng = np.random.default_rng(321)
-    layout = os.environ.get("OECE_LAYOUT", "rev2")
-    if jax.default_backend() not in ("cpu",):
-        from oece_tpu.fhe import devkeygen
+    from oece_tpu.fhe import devkeygen
 
-        sk, _z, dkeys = devkeygen.device_keygen(p, seed=0, layout=layout)
-    else:
-        sk, bk = keycache.load_or_generate(p, BinFHEMethod.GINX, 0)
-        dkeys = boot.pack_bootstrap_key(bk)
+    sk, _z, dkeys = devkeygen.device_keygen(p, seed=0)
+    layout = "rev2"  # the rotated-difference step form (NOISE.md §3)
     s_dev = jnp.asarray(np.asarray(sk.s, dtype=np.int32))
 
     TRUTH = [

@@ -1,5 +1,4 @@
-"""Empirically pin the bit/operand conventions of the reference's
-new-Bristol circuits (aes_*, mult2_64, udivide64, FP-add) by evaluating
+"""Empirically pin the bit/operand conventions of the new-Bristol circuits (aes_*, mult2_64, udivide64, FP-add) by evaluating
 the real files in plaintext mode against golden models under all
 candidate conventions.  One batched run per circuit."""
 import os
@@ -11,7 +10,10 @@ from oece_tpu.circuits.bristol import parse_bristol
 from oece_tpu.runtime.evaluator import Circuit
 from oece_tpu.harness import models
 
-REF = "/root/reference/examples/new_bristol_ckts"
+REF = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    "examples", "new_bristol_ckts",
+)
 
 def hl(x: bytes) -> np.ndarray:
     return models.hex_to_bits_lsb(x.hex())
